@@ -45,6 +45,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers",
         "slow: compile-heavy test, excluded unless --runslow or RUN_SLOW=1")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU; skips, with its reason, where there is none")
 
 
 def pytest_collection_modifyitems(config, items):

@@ -1,0 +1,117 @@
+"""The port's flash-attention forward (tputopo_torch.attention) against the
+JAX package's Pallas kernel, run in interpret mode on the CPU.
+
+On the CPU the port computes the kernel's plain version; the CUDA kernel
+itself is held against that plain version by the ``cuda``-marked test
+here (skipped without a GPU) and by ``chip_smoke.py`` on the card."""
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp
+
+from tests.torch_parity import normal
+from tputopo.workloads.attention import _flash_forward_lse
+from tputopo.workloads.attention import flash_attention as jax_flash
+from tputopo.workloads.attention import reference_attention as jax_reference
+from tputopo_torch import _kernels
+from tputopo_torch import attention as att
+
+torch.set_num_threads(1)
+
+# The reference's own flash tolerance at f32 (tests/test_attention.py).
+TOL = 3e-5
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def both(arrays):
+    return ([jnp.asarray(a) for a in arrays],
+            [torch.from_numpy(a) for a in arrays])
+
+
+@pytest.mark.parametrize("shape,causal,block_q,block_kv", [
+    ((2, 64, 2, 16), True, 16, 16),
+    ((2, 64, 2, 16), False, 16, 16),
+    ((1, 64, 1, 8), False, 16, 32),   # uneven blocks, as ring attention uses
+])
+def test_flash_forward_lse_matches_jax_kernel(shape, causal, block_q, block_kv):
+    (jq, jk, jv), (tq, tk, tv) = both(normal(shape))
+    jo, jlse = _flash_forward_lse(jq, jk, jv, causal=causal, block_q=block_q,
+                                  block_kv=block_kv, interpret=True)
+    to, tlse = att.flash_forward_lse(tq, tk, tv, causal=causal,
+                                     block_q=block_q, block_kv=block_kv)
+    B, S, N, _ = shape
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=TOL, rtol=TOL)
+    # JAX tiles the LSE [B*N, n_q, bq]; the port keeps it [B*N, S].
+    np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse).reshape(B * N, S),
+                               atol=TOL, rtol=TOL)
+    out = att.flash_attention(tq, tk, tv, causal=causal, block_q=block_q,
+                              block_kv=block_kv)
+    ref = jax_flash(jq, jk, jv, causal=causal, block_q=block_q,
+                    block_kv=block_kv, interpret=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_reference_attention_matches_jax(causal):
+    (jq, jk, jv), (tq, tk, tv) = both(normal((2, 32, 2, 8), seed=3))
+    np.testing.assert_allclose(
+        att.reference_attention(tq, tk, tv, causal=causal).numpy(),
+        np.asarray(jax_reference(jq, jk, jv, causal=causal)),
+        atol=TOL, rtol=TOL)
+
+
+def test_flash_rejects_bad_shapes():
+    q, k, v = (torch.from_numpy(a) for a in normal((1, 60, 1, 8)))
+    with pytest.raises(ValueError, match="divisible"):
+        att.flash_attention(q, k, v, block_q=16, block_kv=16)
+    q2, k2, v2 = (torch.from_numpy(a) for a in normal((1, 64, 1, 8)))
+    with pytest.raises(ValueError, match="block_q == block_kv"):
+        att.flash_attention(q2, k2, v2, causal=True, block_q=16, block_kv=32)
+    with pytest.raises(ValueError, match="shapes differ"):
+        att.flash_attention(q2, k2[:, :32], v2, block_q=16, block_kv=16)
+
+
+def test_flash_is_forward_only():
+    q, k, v = (torch.from_numpy(a) for a in normal((1, 32, 1, 8)))
+    with pytest.raises(NotImplementedError, match="training slice"):
+        att.flash_attention(q.requires_grad_(), k, v, block_q=16, block_kv=16)
+
+
+def test_cpu_tensors_take_the_plain_version():
+    q, k, v = (torch.from_numpy(a) for a in normal((1, 32, 2, 8)))
+    before = _kernels.FLASH_FWD.launches
+    o, lse = att.flash_forward_lse(q, k, v, causal=True, block_q=16, block_kv=16)
+    po, plse = att._flash_forward_lse_plain(q, k, v, causal=True)
+    assert _kernels.FLASH_FWD.launches == before
+    assert torch.equal(o, po) and torch.equal(lse, plse)
+    assert lse.dtype == torch.float32 and lse.shape == (2, 32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,causal,shape,tol", [
+    ("float32", True, (2, 64, 2, 16), 3e-5),
+    ("float32", False, (1, 200, 2, 128), 3e-5),
+    # bf16: P and O are rounded at different points on the two sides.
+    ("bfloat16", True, (2, 96, 3, 32), 1.6e-2),
+    ("bfloat16", False, (1, 40, 2, 24), 1.6e-2),
+])
+def test_cuda_kernel_matches_plain_version(cuda, dtype, causal, shape, tol):
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(a).to(cuda, dt) for a in normal(shape, seed=5))
+    before = _kernels.FLASH_FWD.launches
+    o, lse = att.flash_forward_lse(q, k, v, causal=causal, block_q=8, block_kv=8)
+    po, plse = att._flash_forward_lse_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert _kernels.FLASH_FWD.launches == before + 1
+    torch.testing.assert_close(o.float(), po.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, plse, atol=1e-4, rtol=0)

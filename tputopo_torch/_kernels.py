@@ -1,0 +1,85 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each kernel is one ``csrc/*.cu`` file with a plain C interface.  It is
+compiled by ``nvcc`` for ``sm_90a`` into a shared library the first time a
+process launches it, and loaded with ``ctypes``.  The library's name
+carries a hash of its source, so an edited source is rebuilt and a stale
+library is never loaded.  Nothing here runs at import time: the CPU tests
+import every module on a machine with no ``nvcc`` and no card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+    candidate = cuda_home / "bin" / "nvcc"
+    if candidate.is_file():
+        return str(candidate)
+    raise RuntimeError("nvcc not found (looked on PATH and in $CUDA_HOME/bin): "
+                       "the CUDA toolkit is needed to build the port's kernels")
+
+
+class Kernel:
+    """One ``csrc`` source, its built library and its launch count.
+
+    ``launches`` is a plain integer that the kernel's wrapper raises by
+    one where it launches the kernel, and nowhere else, so a run can show
+    that its main path went through the kernel."""
+
+    def __init__(self, name: str, source: str):
+        self.name = name
+        self.source = CSRC / source
+        self.launches = 0
+        self.build_log = ""
+        self.build_seconds = 0.0
+        self._lib: ctypes.CDLL | None = None
+
+    def library_path(self) -> Path:
+        digest = hashlib.sha256(self.source.read_bytes()).hexdigest()[:12]
+        return BUILD_DIR / f"lib{self.name}-{digest}.so"
+
+    def build(self) -> Path:
+        """Compile the source unless a library of this exact source exists."""
+        out = self.library_path()
+        if out.is_file():
+            return out
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        self.build_seconds = time.perf_counter() - t0
+        self.build_log = res.stdout + res.stderr
+        if res.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed to build {self.source.name} "
+                               f"(exit {res.returncode}):\n{self.build_log}")
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+        return out
+
+    def lib(self) -> ctypes.CDLL:
+        if self._lib is None:
+            self._lib = ctypes.CDLL(str(self.build()))
+        return self._lib
+
+
+FLASH_FWD = Kernel("flash_fwd", "flash_fwd.cu")
+KERNELS = (FLASH_FWD,)

@@ -1,0 +1,38 @@
+"""Parameter trees from numpy — how the port takes over weights from the
+JAX package (or from any source that can hand over numpy arrays).
+
+The tree is nested dicts of numpy arrays in the reference's layout
+(``init_params``: stacked ``[L, in, out]`` matmul weights); the result is
+the same tree of torch tensors, leaf for leaf, so both packages compute
+the same function on the same numbers.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tputopo_torch.model import resolve_device
+
+
+def _leaf(a, device: torch.device, dtype: torch.dtype | None) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        # torch.from_numpy rejects ml_dtypes' bfloat16; f32 holds it exactly.
+        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))  # a writable copy
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def params_from_numpy(tree, *, device=None, dtype: torch.dtype | None = None):
+    """Nested dicts of numpy arrays -> the same dicts of tensors on
+    ``device`` (``cuda`` by default, see :func:`~.model.resolve_device`);
+    floating leaves are cast to ``dtype`` when it is given."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device=dev, dtype=dtype)
+                for k, v in tree.items()}
+    return _leaf(tree, dev, dtype)

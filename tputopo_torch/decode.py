@@ -1,0 +1,158 @@
+"""Autoregressive decoding with a KV cache — the counterpart of
+``tputopo/workloads/decode.py``, the one-shot path that answers requests
+(fixed batch, uniform prompts, run to completion).
+
+The cache is a pair of preallocated ``[L, B, S_max, KV, H]`` buffers in
+``compute_dtype``.  Where JAX threads a new cache value through
+``lax.scan``, this module writes the new K/V rows into the buffers in
+place (:func:`_store_kv`) and loops over layers and steps in Python.
+
+The prompt fills the cache in one batched :func:`_block_step`, then each
+new token is one single-position step.  Attention over the cache is the
+grouped GQA einsum of the reference, in f32 with ``-1e30`` masking; the
+prefill attends the same way, not through the flash kernel, exactly as
+the reference does.
+
+Decoding policies: greedy (temperature 0, the default) and temperature
+sampling with optional top-k, drawn from a caller's ``torch.Generator``.
+The int8 KV cache (``kv_dtype="int8"``) and MoE layers come with later
+slices and raise here.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from tputopo_torch.model import (ModelConfig, _apply_rope, _check_supported,
+                                 _layer, _rmsnorm, _rope_tables, embed_tokens,
+                                 lm_head, resolve_device)
+from tputopo_torch.quant import qdot
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor  # [L, B, S_max, KV, H]  compute_dtype
+    v: torch.Tensor  # [L, B, S_max, KV, H]
+
+    @staticmethod
+    def create(config: ModelConfig, batch: int, max_len: int, *,
+               device=None) -> "KVCache":
+        c = config
+        if c.kv_dtype == "int8":
+            raise NotImplementedError("the int8 KV cache is not ported yet: "
+                                      "it comes with the quantization slice "
+                                      "of tputopo_torch")
+        if c.kv_dtype != "bf16":
+            raise ValueError(f"unknown kv_dtype {c.kv_dtype!r}")
+        dev = resolve_device(device)
+        shape = (c.n_layers, batch, max_len, c.n_kv_heads, c.head_dim)
+        return KVCache(k=torch.zeros(shape, dtype=c.compute_dtype, device=dev),
+                       v=torch.zeros(shape, dtype=c.compute_dtype, device=dev))
+
+
+def _store_kv(buf: torch.Tensor, kv: torch.Tensor, start: int) -> None:
+    """Write K or V rows [B, T, KV, H] into one layer's cache buffer
+    [B, S_max, KV, H] at position ``start``, in place."""
+    buf[:, start:start + kv.shape[1]] = kv
+
+
+def _attend_cached(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                   start: int, group: int) -> torch.Tensor:
+    """q [B, T, N, H] (query positions start..start+T-1) against a cache
+    [B, S_max, KV, H]; cache positions beyond each query's own are masked.
+    Returns [B, T, N, H].
+
+    GQA stays grouped: q reshapes to [B, T, KV, group, H], so head n reads
+    kv head n // group (the repeat order of the forward) and the cache is
+    read at its own KV width."""
+    B, T, N, H = q.shape
+    KV = ck.shape[2]
+    scale = 1.0 / (H ** 0.5)
+    qg = q.float().reshape(B, T, KV, group, H) * scale
+    s = torch.einsum("btkgh,bskh->bkgts", qg, ck.float())
+    k_pos = torch.arange(ck.shape[1], device=q.device)
+    q_pos = start + torch.arange(T, device=q.device)
+    s = s.masked_fill(k_pos[None, :] > q_pos[:, None], -1e30)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgts,bskh->btkgh", p, cv.float())
+    return out.reshape(B, T, N, H).to(q.dtype)
+
+
+def _block_step(params: dict, config: ModelConfig, tokens: torch.Tensor,
+                start: int, cache: KVCache, cos: torch.Tensor,
+                sin: torch.Tensor) -> torch.Tensor:
+    """Feed ``tokens`` [B, T] at positions start..start+T-1 through the
+    stack, writing their K/V into ``cache`` -> logits [B, T, V].  T equal
+    to the prompt length is the prefill; T == 1 is one decode step."""
+    c = config
+    B, T = tokens.shape
+    group = c.n_heads // c.n_kv_heads
+    x = embed_tokens(params, tokens, c)  # [B, T, D]
+    cos_t, sin_t = cos[start:start + T], sin[start:start + T]
+    for i in range(c.n_layers):
+        layer = _layer(params["layers"], i)
+        h = _rmsnorm(x, layer["attn_norm"], c.norm_eps)
+        q = qdot(h, layer["wq"]).reshape(B, T, c.n_heads, c.head_dim)
+        k = qdot(h, layer["wk"]).reshape(B, T, c.n_kv_heads, c.head_dim)
+        v = qdot(h, layer["wv"]).reshape(B, T, c.n_kv_heads, c.head_dim)
+        q = _apply_rope(q, cos_t, sin_t)
+        k = _apply_rope(k, cos_t, sin_t)
+        _store_kv(cache.k[i], k, start)
+        _store_kv(cache.v[i], v, start)
+        out = _attend_cached(q, cache.k[i], cache.v[i], start, group)
+        x = x + qdot(out.reshape(B, T, c.n_heads * c.head_dim), layer["wo"])
+        h2 = _rmsnorm(x, layer["mlp_norm"], c.norm_eps)
+        gate = F.silu(qdot(h2, layer["w_gate"]))
+        x = x + qdot(gate * qdot(h2, layer["w_up"]), layer["w_down"])
+    return lm_head(params, x, c)
+
+
+def _select(logits: torch.Tensor, temperature: float, top_k: int | None,
+            generator: torch.Generator | None) -> torch.Tensor:
+    """Next token from [B, V] logits: argmax at temperature 0, otherwise
+    a draw from the (optionally top-k-truncated) tempered distribution."""
+    if temperature == 0.0:
+        return torch.argmax(logits, dim=-1)
+    lg = logits / temperature
+    if top_k is not None:
+        kth = torch.topk(lg, top_k, dim=-1).values[:, -1:]
+        lg = lg.masked_fill(lg < kth, float("-inf"))
+    probs = torch.softmax(lg, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+@torch.no_grad()
+def generate(params: dict, prompt: torch.Tensor, config: ModelConfig, *,
+             max_new: int, max_len: int | None = None,
+             temperature: float = 0.0, top_k: int | None = None,
+             generator: torch.Generator | None = None) -> torch.Tensor:
+    """Decode: prompt [B, P] -> [B, P + max_new] token ids, on the device
+    that holds ``params``.
+
+    ``temperature`` 0 (default) is greedy; above 0 it samples, optionally
+    from the ``top_k`` most likely tokens, drawing from ``generator``
+    (required then, on the params' device)."""
+    c = config
+    _check_supported(c)
+    device = params["final_norm"].device
+    prompt = torch.as_tensor(prompt, device=device)
+    B, P = prompt.shape
+    if max_new < 1:
+        raise ValueError(f"max_new must be >= 1, got {max_new}")
+    if temperature > 0.0 and generator is None:
+        raise ValueError("sampling (temperature > 0) needs a torch.Generator")
+    total = P + max_new
+    max_len = max_len or total
+    if max_len < total:
+        raise ValueError(f"max_len {max_len} < prompt {P} + new {max_new}")
+    cos, sin = _rope_tables(c, max_len, device)
+    cache = KVCache.create(c, B, max_len, device=device)
+
+    logits = _block_step(params, c, prompt, 0, cache, cos, sin)
+    toks = [_select(logits[:, -1], temperature, top_k, generator)]
+    for i in range(max_new - 1):
+        lg = _block_step(params, c, toks[-1][:, None], P + i, cache, cos, sin)
+        toks.append(_select(lg[:, -1], temperature, top_k, generator))
+    return torch.cat([prompt, torch.stack(toks, dim=1).to(prompt.dtype)], dim=1)
