@@ -9,15 +9,23 @@ and a CUDA build of PyTorch:
 Phases, each printed as one JSON line on stdout:
 
 1. the card: name and power limit from ``nvidia-smi``;
-2. the build: every kernel of the port compiled from ``tputopo_torch/csrc``;
+2. the build: every kernel of the port compiled from ``tputopo_torch/csrc``,
+   one ``nvcc`` per source, all at once, with ptxas' register and spill
+   counts;
 3. each kernel against its plain PyTorch version on the card, at tiny
    shapes and at the main path's shape, with its stated tolerance, and
-   timed beside the plain version and one PyTorch library call;
+   timed beside the plain version and one PyTorch library call: the flash
+   forward, then the dQ and dK/dV backward kernels;
 4. the inference forward of Llama-3-8B at full width (32 layers, random
    weights from a seed) on 2048 tokens: ``attn_impl="auto"`` must launch
    the flash kernel once per layer, the logits must be finite and agree
    with the einsum path within a stated bound;
-5. greedy KV-cache decoding at full width, twice, with identical tokens.
+5. greedy KV-cache decoding at full width, twice, with identical tokens;
+6. training at Llama-3-8B width, depth cut to 4 layers (below): loss and
+   grads through the kernels against the einsum path, then three AdamW
+   steps on one batch, each launching the forward kernel 2·L times and
+   each backward kernel L times, with the loss falling; then one
+   loss-and-grads under each remat policy.
 
 Then one ``kernels`` line, the card's ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
@@ -28,7 +36,10 @@ the script fails.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
+import math
+import re
 import statistics
 import subprocess
 import sys
@@ -72,6 +83,50 @@ FWD_TOP1 = 0.9
 GEN_GAP = 2 * FWD_MAX_ABS
 GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 128, 8
 
+# Backward kernels against their plain versions.  f32: the reference's grad
+# tolerance (tests/test_attention.py:90), elementwise.  bf16, as
+# ||kernel - plain|| / ||plain|| per output: both sides compute P and dS in
+# f32 from the same f32 scores and round them to bf16 before the products,
+# so they differ only where two f32 values summed in another order round
+# to neighbouring bf16 numbers (2**-8 relative), and in the final rounding
+# of dQ, dK and dV to bf16 (at most one ulp, 2**-8 relative).  Each output
+# element is off by at most ~one ulp, so the norm-relative error stays under
+# 2**-8 = 3.9e-3; the bound is 2.5x that.  An elementwise bound would trip
+# on the outputs that cancel to near zero over 2048 terms.
+BWD_F32_TOL = 5e-5
+BWD_BF16_NORM_REL = 1e-2
+
+# The forward and backward kernels' cases: both dtypes, causal and not,
+# uneven blocks, S not a multiple of the kernels' 64-row tile, H not a
+# multiple of 16, and the model's shape (last).
+# (B, S, N, H, dtype, causal, block_q, block_kv)
+FLASH_CASES = [
+    (2, 64, 2, 16, torch.float32, True, 16, 16),
+    (2, 64, 2, 16, torch.float32, False, 16, 16),
+    (1, 64, 1, 8, torch.float32, False, 16, 32),
+    (1, 200, 2, 128, torch.float32, True, 8, 8),
+    (2, 96, 3, 32, torch.bfloat16, True, 32, 32),
+    (1, 40, 2, 24, torch.bfloat16, False, 8, 20),
+    (1, 2048, 32, 128, torch.bfloat16, True, 128, 128),
+]
+
+# Training: Llama-3-8B at full width (vocab 128256, d_model 4096, 32/8
+# heads, head dim 128, d_ff 14336), remat="block", bf16 over f32 masters,
+# tokens [1, 2048].  Depth is cut to 4 layers, and only for memory: each
+# parameter costs 16 B (f32 master, f32 grad, two f32 AdamW moments), so
+# 32 layers (8.03 B parameters) would need 128 GB, above the card's 80 GB;
+# 4 layers are 1.92 B parameters, ~31 GB of state.
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_LR, TRAIN_STEPS = 4, 2048, 3e-4, 3
+# One step's loss and grads through the kernels against the einsum path,
+# bf16: the einsum path rounds the scores and probabilities to bf16, the
+# kernels keep scores in f32, and the difference compounds through the
+# layers and into every grad.  A CPU run of the port at d_model 512, 4
+# layers, vocab 128256, 512 tokens gave |dloss| 2.4e-4 and per-leaf
+# ||dgrad|| / ||grad|| 0.010-0.024; the bounds leave room for the wider
+# model and the longer sequence.
+TRAIN_LOSS_TOL = 1e-2
+TRAIN_GRAD_NORM_REL = 0.1
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -100,17 +155,41 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def flash_bound_ms(B, S, N, H, dtype, causal) -> tuple[float, str]:
-    """Least time for the attention forward: causal pairs actually needed,
-    2 matmuls of 2 flops per pair per head-dim element; each of q, k, v
-    read once and o, lse written once."""
+def flash_bound_ms(B, S, N, H, dtype, causal, products=2, n_io=4,
+                   n_rows=1) -> tuple[float, str]:
+    """Least time for an attention kernel: the causal pairs actually needed,
+    ``products`` matmuls of 2 flops per pair per head-dim element (2 for
+    the forward, 3 for dQ, 4 for dK/dV); ``n_io`` [B, S, N, H] tensors
+    read or written once (4 for the forward: q, k, v, o; 5 for dQ; 6 for
+    dK/dV) and ``n_rows`` f32 values per row (the LSE; the backward's LSE
+    and D)."""
     pairs = S * (S + 1) // 2 if causal else S * S
-    flops = 4.0 * B * N * pairs * H
+    flops = 2.0 * products * B * N * pairs * H
     elem = torch.tensor([], dtype=dtype).element_size()
-    nbytes = 4.0 * B * S * N * H * elem + 4.0 * B * N * S
+    nbytes = n_io * B * S * N * H * elem + 4.0 * n_rows * B * N * S
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def ptxas_summary(log: str) -> dict:
+    """Registers and spills of each H = 128 entry function, from ptxas -v."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?\d(flash_(?:fwd|dq|dkv)_(?:bf16|f32))ILi(\d)E", line)
+        if m:
+            name = m.group(1) if m.group(2) == "8" else None
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out.setdefault(name, {}).update(spill_stores=int(m.group(1)),
+                                            spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
 
 
 def card() -> str:
@@ -123,20 +202,8 @@ def card() -> str:
 def phase_flash(att, kernel) -> dict:
     """The flash forward kernel against its plain version."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    # (B, S, N, H, dtype, causal, block_q, block_kv): both dtypes, causal
-    # and not, uneven blocks, S not a multiple of the kernel's 64-row tile,
-    # H not a multiple of 16, and the model's shape.
-    cases = [
-        (2, 64, 2, 16, torch.float32, True, 16, 16),
-        (2, 64, 2, 16, torch.float32, False, 16, 16),
-        (1, 64, 1, 8, torch.float32, False, 16, 32),
-        (1, 200, 2, 128, torch.float32, True, 8, 8),
-        (2, 96, 3, 32, torch.bfloat16, True, 32, 32),
-        (1, 40, 2, 24, torch.bfloat16, False, 8, 20),
-        (1, 2048, 32, 128, torch.bfloat16, True, 128, 128),
-    ]
     main_err = 0.0
-    for B, S, N, H, dtype, causal, bq, bkv in cases:
+    for B, S, N, H, dtype, causal, bq, bkv in FLASH_CASES:
         q, k, v = (torch.randn((B, S, N, H), generator=gen, device="cuda").to(dtype)
                    for _ in range(3))
         o, lse = att.flash_forward_lse(q, k, v, causal=causal, block_q=bq, block_kv=bkv)
@@ -176,6 +243,82 @@ def phase_flash(att, kernel) -> dict:
             "replaces": "tputopo/workloads/attention.py:118",
             "max_abs_err": main_err, "ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+
+
+def phase_flash_bwd(att) -> list[dict]:
+    """The dQ and dK/dV kernels against their plain versions on the same
+    q, k, v, dO, LSE and D, then timed at the model's shape."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    errs = {}
+    for B, S, N, H, dtype, causal, bq, bkv in FLASH_CASES:
+        q, k, v, do = (torch.randn((B, S, N, H), generator=gen, device="cuda").to(dtype)
+                       for _ in range(4))
+        o, lse = att.flash_forward_lse(q, k, v, causal=causal, block_q=bq, block_kv=bkv)
+        got = att.flash_backward(q, k, v, o, lse, do, causal=causal, block_q=bq,
+                                 block_kv=bkv)
+        d = att._flash_d(o, do)
+        plain = (att._flash_dq_plain(q, k, v, do, lse, d, causal=causal),
+                 *att._flash_dkv_plain(q, k, v, do, lse, d, causal=causal))
+        torch.cuda.synchronize()
+        rec = {"phase": "flash_bwd_vs_plain", "shape": [B, S, N, H],
+               "dtype": str(dtype).removeprefix("torch."), "causal": causal,
+               "blocks": [bq, bkv]}
+        ok = True
+        for name, g, ref in zip(("dq", "dk", "dv"), got, plain):
+            g, ref = g.float(), ref.float()
+            check(bool(torch.isfinite(g).all()), f"{name} kernel output not finite")
+            err = (g - ref).abs()
+            norm_rel = ((g - ref).norm() / ref.norm()).item()
+            rec[f"{name}_max_abs_err"] = err.max().item()
+            rec[f"{name}_norm_rel_err"] = norm_rel
+            if dtype == torch.float32:
+                ok &= bool((err <= BWD_F32_TOL + BWD_F32_TOL * ref.abs()).all())
+            else:
+                ok &= norm_rel <= BWD_BF16_NORM_REL
+            errs[name] = err.max().item()  # the last case is the model's shape
+        rec["tolerance"] = ({"atol": BWD_F32_TOL, "rtol": BWD_F32_TOL}
+                            if dtype == torch.float32 else {"norm_rel": BWD_BF16_NORM_REL})
+        rec["within"] = ok
+        emit(rec)
+        check(ok, f"backward kernels disagree with their plain versions: {rec}")
+
+    B, S, N, H = 1, 2048, 32, 128
+    q, k, v, do = (torch.randn((B, S, N, H), generator=gen, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(4))
+    o, lse = att.flash_forward_lse(q, k, v, causal=True, block_q=128, block_kv=128)
+    d = att._flash_d(o, do)
+    args = (q, k, v, do, lse, d)
+    times = {
+        "dq": (cuda_ms(lambda: att._flash_dq_cuda(*args, causal=True)),
+               cuda_ms(lambda: att._flash_dq_plain(*args, causal=True), reps=5)),
+        "dkv": (cuda_ms(lambda: att._flash_dkv_cuda(*args, causal=True)),
+                cuda_ms(lambda: att._flash_dkv_plain(*args, causal=True), reps=5)),
+    }
+    # The yardstick: SDPA's backward, which computes dQ, dK and dV together.
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt),
+                                                     do.transpose(1, 2),
+                                                     retain_graph=True))
+    entries = []
+    for name, kernel_name, line, products, n_io, err in (
+            ("dq", "flash_bwd_dq", 170, 3, 5, errs["dq"]),
+            ("dkv", "flash_bwd_dkv", 200, 4, 6, max(errs["dk"], errs["dv"]))):
+        bound_ms, bound_by = flash_bound_ms(B, S, N, H, torch.bfloat16, True,
+                                            products=products, n_io=n_io, n_rows=2)
+        kernel_ms, plain_ms = times[name]
+        emit({"phase": "flash_bwd_timing", "kernel": kernel_name,
+              "shape": [B, S, N, H], "dtype": "bfloat16", "causal": True,
+              "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+              "library": "scaled_dot_product_attention backward (dQ, dK, dV)",
+              "bound_ms": bound_ms, "bound_by": bound_by})
+        entries.append({"name": kernel_name, "route": "cuda",
+                        "source": f"tputopo_torch/csrc/{kernel_name}.cu",
+                        "replaces": f"tputopo/workloads/attention.py:{line}",
+                        "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": library_ms})
+    return entries
 
 
 def phase_forward(tt, kernels) -> tuple:
@@ -266,6 +409,108 @@ def phase_generate(tt, kernels, params, cfg) -> torch.Tensor:
     return prompt
 
 
+def phase_train(tt, kernels) -> tuple:
+    """Llama-3-8B width, 4 layers, tokens [1, 2048]: one step's loss and
+    grads through the kernels against the einsum path, then TRAIN_STEPS
+    AdamW steps on one batch.  Returns (state, config, tokens, launches
+    of the last step)."""
+    from tputopo_torch import train as tr
+
+    cfg = dataclasses.replace(tt.ModelConfig.llama3_8b(), n_layers=TRAIN_LAYERS)
+    check(cfg.remat == "block", f"remat {cfg.remat!r}")
+    t0 = time.perf_counter()
+    state = tt.make_train_state(cfg, 0, lr=TRAIN_LR)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in tr._leaves(state.params))
+    tokens = torch.randint(0, cfg.vocab_size, (1, TRAIN_SEQ), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(3))
+
+    loss_k, grads_k = tr.loss_and_grads(state.params, tokens, cfg)
+    loss_e, grads_e = tr.loss_and_grads(
+        state.params, tokens, dataclasses.replace(cfg, attn_impl="einsum"))
+    def leaf_names(tree, prefix=""):  # in tr._leaves' order
+        return [n for k in sorted(tree) for n in (
+            leaf_names(tree[k], f"{prefix}{k}.") if isinstance(tree[k], dict)
+            else [prefix + k])]
+
+    names = leaf_names(state.params)
+    grad_err = {n: ((a - b).norm() / b.norm()).item()
+                for n, a, b in zip(names, grads_k, grads_e)}
+    finite = all(bool(torch.isfinite(g).all()) for g in grads_k)
+    dloss = abs(loss_k - loss_e).item()
+    del grads_k, grads_e
+    rec = {"phase": "train_vs_einsum", "model": "llama3_8b", "layers": TRAIN_LAYERS,
+           "tokens": [1, TRAIN_SEQ], "params": n_params, "init_s": init_s,
+           "loss_kernels": loss_k.item(), "loss_einsum": loss_e.item(),
+           "abs_dloss": dloss, "bound_abs_dloss": TRAIN_LOSS_TOL,
+           "grad_norm_rel_err": grad_err, "bound_grad_norm_rel": TRAIN_GRAD_NORM_REL,
+           "grads_finite": finite}
+    emit(rec)
+    check(finite and dloss <= TRAIN_LOSS_TOL
+          and max(grad_err.values()) <= TRAIN_GRAD_NORM_REL,
+          f"kernel-path loss/grads disagree with the einsum path: {rec}")
+
+    want = {"flash_fwd": 2 * TRAIN_LAYERS, "flash_bwd_dq": TRAIN_LAYERS,
+            "flash_bwd_dkv": TRAIN_LAYERS}
+    losses, step_s = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(TRAIN_STEPS):
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = tt.train_step(state, tokens, cfg, lr=TRAIN_LR)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        launches = {k.name: k.launches for k in kernels}
+        check(launches == want, f"train step launched {launches}, want {want}")
+        losses.append(loss.item())
+    rec = {"phase": "train", "model": "llama3_8b", "layers": TRAIN_LAYERS,
+           "tokens": [1, TRAIN_SEQ], "remat": cfg.remat, "lr": TRAIN_LR,
+           "losses": losses, "step_ms": [t * 1e3 for t in step_s],
+           "tokens_per_s": TRAIN_SEQ / step_s[-1], "launches_per_step": launches,
+           "step": int(state.step),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(rec)
+    check(all(map(math.isfinite, losses)), f"train loss not finite: {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    return state, cfg, tokens, launches
+
+
+def phase_remat(kernels, state, cfg, tokens) -> None:
+    """One loss-and-grads per remat policy at the training shape: the same
+    loss (the forward is the same computation under every policy), the
+    forward kernel 2·L times under "block" and L times under "dots" (its
+    (o, lse) kept by the selective checkpoint) and "none"; time and peak
+    memory of each."""
+    from tputopo_torch import train as tr
+
+    L = cfg.n_layers
+    want = {"block": 2 * L, "dots": L, "none": L}
+    rec = {"phase": "remat", "layers": L, "tokens": list(tokens.shape)}
+    for policy, n_fwd in want.items():
+        pcfg = dataclasses.replace(cfg, remat=policy)
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, grads = tr.loss_and_grads(state.params, tokens, pcfg)
+        torch.cuda.synchronize()
+        rec[policy] = {"loss": loss.item(), "ms": (time.perf_counter() - t0) * 1e3,
+                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                       "launches": {k.name: k.launches for k in kernels}}
+        del grads
+        check(rec[policy]["launches"] == {"flash_fwd": n_fwd, "flash_bwd_dq": L,
+                                          "flash_bwd_dkv": L},
+              f"remat={policy} launched {rec[policy]['launches']}")
+    emit(rec)
+    for policy in ("dots", "none"):
+        check(abs(rec[policy]["loss"] - rec["block"]["loss"]) <= 1e-5,
+              f"remat={policy} changed the loss: {rec}")
+
+
 def device_profile(path: str, fn, top: int = 12) -> dict:
     """Device time by kernel over one run of ``fn``, from torch.profiler.
     The wall time includes the profiler's own overhead, so the idle share
@@ -305,20 +550,34 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0)})
 
+    _kernels.build_all()
     for k in _kernels.KERNELS:
         k.lib()
         emit({"phase": "build", "kernel": k.name, "seconds": k.build_seconds,
-              "library": k.library_path().name})
+              "library": k.library_path().name, "ptxas": ptxas_summary(k.build_log)})
         print(k.build_log, file=sys.stderr, flush=True)
 
-    entry = phase_flash(att, _kernels.FLASH_FWD)
-    params, cfg, tokens, launches = phase_forward(tt, _kernels.KERNELS)
+    entries = [phase_flash(att, _kernels.FLASH_FWD), *phase_flash_bwd(att)]
+    params, cfg, tokens, fwd_launches = phase_forward(tt, _kernels.KERNELS)
     prompt = phase_generate(tt, _kernels.KERNELS, params, cfg)
     emit(device_profile("forward", lambda: tt.forward(params, tokens, cfg)))
     emit(device_profile("generate", lambda: tt.generate(
         params, prompt, cfg, max_new=GEN_NEW)))
-    entry["launches"] = launches[entry["name"]]
-    emit({"kernels": [entry]})
+    # The 32-layer parameters (32.1 GB) and the training state (~31 GB)
+    # are never resident together.
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    state, tcfg, ttokens, step_launches = phase_train(tt, _kernels.KERNELS)
+    emit(device_profile("train_step", lambda: tt.train_step(
+        state, ttokens, tcfg, lr=TRAIN_LR)))
+    phase_remat(_kernels.KERNELS, state, tcfg, ttokens)
+    for e in entries:
+        e["launches"] = step_launches[e["name"]]  # per train step, the main path
+        e["launches_by_path"] = {"forward": fwd_launches[e["name"]],
+                                 "train_step": step_launches[e["name"]]}
+    emit({"kernels": entries})
     print(name, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

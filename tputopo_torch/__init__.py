@@ -2,15 +2,18 @@
 
 The package mirrors the JAX package module for module and runs on an
 NVIDIA H100; the JAX package stays the reference it is tested against.
-This slice carries the Llama-family LM's inference forward
-(:func:`forward`), with attention through a hand-written sm_90a CUDA
-flash-attention kernel, and one-shot KV-cache decoding
-(:func:`generate`).  It imports neither JAX nor anything of ``tputopo``.
+It carries the Llama-family LM's forward (:func:`forward`), with
+attention through hand-written sm_90a CUDA flash-attention kernels forward
+and backward, one-shot KV-cache decoding (:func:`generate`), and the
+single-device AdamW training step (:func:`train_step`).  It imports
+neither JAX nor anything of ``tputopo``.
 """
 
-from tputopo_torch.convert import params_from_numpy
+from tputopo_torch.convert import params_from_numpy, train_state_from_numpy
 from tputopo_torch.decode import KVCache, generate
 from tputopo_torch.model import ModelConfig, forward, init_params
+from tputopo_torch.train import TrainState, loss_fn, make_train_state, train_step
 
-__all__ = ["KVCache", "ModelConfig", "forward", "generate", "init_params",
-           "params_from_numpy"]
+__all__ = ["KVCache", "ModelConfig", "TrainState", "forward", "generate",
+           "init_params", "loss_fn", "make_train_state", "params_from_numpy",
+           "train_state_from_numpy", "train_step"]

@@ -3,9 +3,10 @@
 Each kernel is one ``csrc/*.cu`` file with a plain C interface.  It is
 compiled by ``nvcc`` for ``sm_90a`` into a shared library the first time a
 process launches it, and loaded with ``ctypes``.  The library's name
-carries a hash of its source, so an edited source is rebuilt and a stale
-library is never loaded.  Nothing here runs at import time: the CPU tests
-import every module on a machine with no ``nvcc`` and no card.
+carries a hash of its source and of every ``csrc/*.cuh`` header, so an
+edited source or header is rebuilt and a stale library is never loaded.
+Nothing here runs at import time: the CPU tests import every module on a
+machine with no ``nvcc`` and no card.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
@@ -53,7 +55,10 @@ class Kernel:
         self._lib: ctypes.CDLL | None = None
 
     def library_path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()).hexdigest()[:12]
+        h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(CSRC.glob("*.cuh")):  # shared by the sources
+            h.update(header.read_bytes())
+        digest = h.hexdigest()[:12]
         return BUILD_DIR / f"lib{self.name}-{digest}.so"
 
     def build(self) -> Path:
@@ -82,4 +87,12 @@ class Kernel:
 
 
 FLASH_FWD = Kernel("flash_fwd", "flash_fwd.cu")
-KERNELS = (FLASH_FWD,)
+FLASH_DQ = Kernel("flash_bwd_dq", "flash_bwd_dq.cu")
+FLASH_DKV = Kernel("flash_bwd_dkv", "flash_bwd_dkv.cu")
+KERNELS = (FLASH_FWD, FLASH_DQ, FLASH_DKV)
+
+
+def build_all() -> None:
+    """Build every kernel at once, one ``nvcc`` process per source."""
+    with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
+        list(pool.map(Kernel.build, KERNELS))  # re-raises a failed build

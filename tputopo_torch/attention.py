@@ -1,17 +1,24 @@
-"""Flash attention, forward — the counterpart of
+"""Flash attention, forward and backward — the counterpart of
 ``tputopo/workloads/attention.py``.
 
-On a CUDA tensor, :func:`flash_forward_lse` launches the hand-written
-Hopper kernel in ``csrc/flash_fwd.cu``, which replaces the Pallas TPU
-kernel ``_flash_fwd_kernel``.  On a CPU tensor it runs
-:func:`_flash_forward_lse_plain`, a straightforward PyTorch computation of
-the same function that the tests hold against the JAX package and that
-``chip_smoke.py`` holds the kernel against on the card.  Nothing falls
-back: a CUDA call that cannot launch the kernel raises.
+On CUDA tensors the three Pallas TPU kernels of the reference become
+hand-written Hopper kernels: ``csrc/flash_fwd.cu`` (``_flash_fwd_kernel``),
+``csrc/flash_bwd_dq.cu`` (``_flash_dq_kernel``) and ``csrc/flash_bwd_dkv.cu``
+(``_flash_dkv_kernel``).  On CPU tensors each is replaced by its plain
+version beside it (``_flash_forward_lse_plain``, ``_flash_dq_plain``,
+``_flash_dkv_plain``): a straightforward PyTorch computation of the same
+function, with the same dtype casts, that the tests hold against the JAX
+package and that ``chip_smoke.py`` holds the kernels against on the card.
+Nothing falls back: a CUDA call that cannot launch its kernel raises.
 
-This slice is forward only.  The dQ and dK/dV kernels, and the
-``torch.autograd.Function`` around all three, come with the training
-slice; until then a call on tensors that require grad raises.
+:func:`flash_attention` is differentiable through one
+``torch.autograd.Function``.  Its forward saves ``(q, k, v, o, lse)`` as the
+reference's ``_flash_vjp_fwd`` does; its backward is :func:`flash_backward`,
+the FlashAttention-2 scheme of two kernels, one per output's accumulation
+order.  The forward launch is the dispatcher op ``tputopo::flash_fwd``, so
+that a selective-checkpoint policy can name it and keep its outputs (the
+reference's ``flash_out``/``flash_lse`` checkpoint names, used by the
+model's ``remat="dots"``).
 
 Layout at the public boundary is the JAX one, q/k/v ``[B, S, N, H]`` with
 equal head counts (callers expand GQA groups first).  The LSE is an f32
@@ -46,15 +53,24 @@ def _validate(q, k, v, causal, block_q, block_kv):
     return block_q, block_kv
 
 
+# ---- plain versions -------------------------------------------------------
+
+def _scores(q, k, *, causal):
+    """scale·QKᵀ in f32 ``[B, N, Sq, Sk]`` with -1e30 above the diagonal
+    when causal: the one score tile definition, as ``_masked_scores``."""
+    S, H = q.shape[1], q.shape[3]
+    s = torch.einsum("bqnh,bknh->bnqk", q.float(), k.float()) * (1.0 / H ** 0.5)
+    if causal:
+        pos = torch.arange(S, device=q.device)
+        s = s.masked_fill(pos[None, :] > pos[:, None], NEG_INF)
+    return s
+
+
 def _flash_forward_lse_plain(q, k, v, *, causal):
     """O and LSE computed whole: scores in f32 with -1e30 masking, P cast
     to V's dtype before P·V (f32 accumulation), LSE = m + log l."""
     B, S, N, H = q.shape
-    scale = 1.0 / (H ** 0.5)
-    s = torch.einsum("bqnh,bknh->bnqk", q.float(), k.float()) * scale
-    if causal:
-        pos = torch.arange(S, device=q.device)
-        s = s.masked_fill(pos[None, :] > pos[:, None], NEG_INF)
+    s = _scores(q, k, causal=causal)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -64,55 +80,113 @@ def _flash_forward_lse_plain(q, k, v, *, causal):
     return out, lse
 
 
-def _flash_forward_lse_cuda(q, k, v, *, causal):
-    """Launch ``csrc/flash_fwd.cu`` on the current stream."""
+def _p_and_ds(q, k, v, do, lse, d, *, causal):
+    """P = exp(scale·QKᵀ − LSE) (masked entries exactly 0) and
+    dS = P∘(dO·Vᵀ − D)·scale, both f32 ``[B, N, Sq, Sk]``."""
     B, S, N, H = q.shape
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    p = torch.exp(_scores(q, k, causal=causal) - lse.reshape(B, N, S, 1))
+    dp = torch.einsum("bqnh,bknh->bnqk", do.float(), v.float())
+    ds = p * (dp - d.reshape(B, N, S, 1)) * (1.0 / H ** 0.5)
+    return p, ds
+
+
+def _flash_dq_plain(q, k, v, do, lse, d, *, causal):
+    """dQ = dS·K with dS cast to K's dtype, f32 accumulation, q's dtype."""
+    _, ds = _p_and_ds(q, k, v, do, lse, d, causal=causal)
+    dq = torch.einsum("bnqk,bknh->bqnh", ds.to(k.dtype).float(), k.float())
+    return dq.to(q.dtype).contiguous()
+
+
+def _flash_dkv_plain(q, k, v, do, lse, d, *, causal):
+    """dV = Pᵀ·dO with P cast to dO's dtype; dK = dSᵀ·Q with dS cast to
+    q's dtype; f32 accumulation, k's and v's dtypes."""
+    p, ds = _p_and_ds(q, k, v, do, lse, d, causal=causal)
+    dv = torch.einsum("bnqk,bqnh->bknh", p.to(do.dtype).float(), do.float())
+    dk = torch.einsum("bnqk,bqnh->bknh", ds.to(q.dtype).float(), q.float())
+    return dk.to(k.dtype).contiguous(), dv.to(v.dtype).contiguous()
+
+
+def _flash_d(o, do):
+    """D = rowsum(dO∘O) in f32, ``[B*N, S]``: the one other O(S) residual of
+    the backward, computed outside the kernels as the reference does."""
+    B, S, N, _ = o.shape
+    d = (do.float() * o.float()).sum(dim=-1)  # [B, S, N]
+    return d.permute(0, 2, 1).reshape(B * N, S).contiguous()
+
+
+# ---- the kernels' wrappers ------------------------------------------------
+
+def _launch(kernel: _kernels.Kernel, tensors: dict, rows: dict, causal: bool,
+            outputs: tuple):
+    """Check the arguments, launch ``kernel`` on the current stream, count
+    the launch.  ``tensors`` are the [B, S, N, H] operands (q first),
+    ``rows`` the [B*N, S] f32 ones; the C function takes their pointers in
+    that order, then ``outputs``' pointers."""
+    q = tensors["q"]
+    B, S, N, H = q.shape
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{kernel.name} kernel takes bfloat16 or float32, "
+                         f"got {q.dtype}")
+    if H % 8 or not 8 <= H <= 128:
+        raise ValueError(f"{kernel.name} kernel needs head dim a multiple of "
+                         f"8 in [8, 128], got {H}")
+    for name, t in tensors.items():
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.dtype != q.dtype:
             raise ValueError(f"{name} is {t.dtype}, q is {q.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous [B, S, N, H]")
-    if q.dtype not in _DTYPE_CODE:
-        raise ValueError(f"flash_fwd kernel takes bfloat16 or float32, "
-                         f"got {q.dtype}")
-    if H % 8 or not 8 <= H <= 128:
-        raise ValueError(f"flash_fwd kernel needs head dim a multiple of 8 "
-                         f"in [8, 128], got {H}")
-    o = torch.empty_like(q)
-    lse = torch.empty((B * N, S), dtype=torch.float32, device=q.device)
-    kernel = _kernels.FLASH_FWD
-    fn = kernel.lib().tputopo_flash_fwd
+        if t.shape != q.shape or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {tuple(q.shape)}")
+    for name, t in rows.items():
+        if (t.device != q.device or t.dtype != torch.float32
+                or t.shape != (B * N, S) or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous f32 [{B * N}, {S}] "
+                             f"tensor on {q.device}")
+    ptrs = [t.data_ptr() for t in (*tensors.values(), *rows.values(), *outputs)]
+    fn = getattr(kernel.lib(), f"tputopo_{kernel.name}")
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), B, S, N, H, int(causal), _DTYPE_CODE[q.dtype],
+        err = fn(*ptrs, B, S, N, H, int(causal), _DTYPE_CODE[q.dtype],
                  1.0 / (H ** 0.5), stream)
     if err != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed: cudaError {err} "
+        raise RuntimeError(f"{kernel.name} kernel launch failed: cudaError {err} "
                            f"(B={B}, S={S}, N={N}, H={H}, {q.dtype})")
     kernel.launches += 1
+
+
+def _flash_forward_lse_cuda(q, k, v, *, causal):
+    """Launch ``csrc/flash_fwd.cu``."""
+    B, S, N, _ = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((B * N, S), dtype=torch.float32, device=q.device)
+    _launch(_kernels.FLASH_FWD, {"q": q, "k": k, "v": v}, {}, causal, (o, lse))
     return o, lse
 
 
-def flash_forward_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      causal: bool = True, block_q: int = 512,
-                      block_kv: int = 512) -> tuple[torch.Tensor, torch.Tensor]:
-    """q/k/v ``[B, S, N, H]`` -> (O ``[B, S, N, H]`` in q's dtype,
-    LSE ``[B*N, S]`` f32).
+def _flash_dq_cuda(q, k, v, do, lse, d, *, causal):
+    """Launch ``csrc/flash_bwd_dq.cu``."""
+    dq = torch.empty_like(q)
+    _launch(_kernels.FLASH_DQ, {"q": q, "k": k, "v": v, "do": do},
+            {"lse": lse, "d": d}, causal, (dq,))
+    return dq
 
-    ``block_q``/``block_kv`` keep the reference's shape contract (S
-    divisible by both; causal needs them equal) so the two APIs accept
-    and reject the same calls; the CUDA kernel picks its own tiles."""
-    _validate(q, k, v, causal, block_q, block_kv)
-    if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise NotImplementedError(
-            "flash attention is forward-only in this slice of tputopo_torch: "
-            "its backward kernels come with the training slice")
+
+def _flash_dkv_cuda(q, k, v, do, lse, d, *, causal):
+    """Launch ``csrc/flash_bwd_dkv.cu``."""
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch(_kernels.FLASH_DKV, {"q": q, "k": k, "v": v, "do": do},
+            {"lse": lse, "d": d}, causal, (dk, dv))
+    return dk, dv
+
+
+# ---- public API -----------------------------------------------------------
+
+@torch.library.custom_op("tputopo::flash_fwd", mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
     if q.device.type == "cpu":
         return _flash_forward_lse_plain(q, k, v, causal=causal)
     if q.device.type == "cuda":
@@ -120,21 +194,80 @@ def flash_forward_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
 
 
+@_flash_fwd_op.register_fake
+def _(q, k, v, causal):
+    B, S, N, _ = q.shape
+    return torch.empty_like(q), q.new_empty((B * N, S), dtype=torch.float32)
+
+
+def flash_forward_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, block_q: int = 512,
+                      block_kv: int = 512) -> tuple[torch.Tensor, torch.Tensor]:
+    """q/k/v ``[B, S, N, H]`` -> (O ``[B, S, N, H]`` in q's dtype,
+    LSE ``[B*N, S]`` f32), not differentiable (the reference's primitive).
+
+    ``block_q``/``block_kv`` keep the reference's shape contract (S
+    divisible by both; causal needs them equal) so the two APIs accept
+    and reject the same calls; the CUDA kernels pick their own tiles."""
+    _validate(q, k, v, causal, block_q, block_kv)
+    return torch.ops.tputopo.flash_fwd(q, k, v, causal)
+
+
+def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                   causal: bool = True, block_q: int = 512, block_kv: int = 512
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dQ, dK, dV) of attention at the cotangent ``do``, from the forward's
+    O and LSE.  D = rowsum(dO∘O) is taken here in f32, as the reference's
+    ``_flash_backward`` does outside its kernels."""
+    _validate(q, k, v, causal, block_q, block_kv)
+    if do.shape != q.shape or o.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
+                         f"have q's shape {tuple(q.shape)}")
+    # autograd may hand a non-contiguous or expanded (stride-0) cotangent
+    do = do.contiguous()
+    d = _flash_d(o, do)
+    if q.device.type == "cpu":
+        dq = _flash_dq_plain(q, k, v, do, lse, d, causal=causal)
+        dk, dv = _flash_dkv_plain(q, k, v, do, lse, d, causal=causal)
+    elif q.device.type == "cuda":
+        dq = _flash_dq_cuda(q, k, v, do, lse, d, causal=causal)
+        dk, dv = _flash_dkv_cuda(q, k, v, do, lse, d, causal=causal)
+    else:
+        raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The reference's ``_flash_vjp``: forward kernel, residuals
+    ``(q, k, v, o, lse)``, backward kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, block_q, block_kv):
+        o, lse = torch.ops.tputopo.flash_fwd(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.blocks = (causal, block_q, block_kv)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, block_q, block_kv = ctx.blocks
+        dq, dk, dv = flash_backward(q, k, v, o, lse, do, causal=causal,
+                                    block_q=block_q, block_kv=block_kv)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, block_q: int = 512,
                     block_kv: int = 512) -> torch.Tensor:
-    """q/k/v ``[B, S, N, H]`` -> O ``[B, S, N, H]`` in q's dtype."""
-    return flash_forward_lse(q, k, v, causal=causal, block_q=block_q,
-                             block_kv=block_kv)[0]
+    """q/k/v ``[B, S, N, H]`` -> O ``[B, S, N, H]`` in q's dtype;
+    differentiable in q, k and v."""
+    _validate(q, k, v, causal, block_q, block_kv)
+    return _FlashAttention.apply(q, k, v, causal, block_q, block_kv)
 
 
 def reference_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
     """Einsum reference (the model's path), for kernel verification."""
-    B, S, N, H = q.shape
-    scale = 1.0 / (H ** 0.5)
-    logits = torch.einsum("bqnh,bknh->bnqk", q.float(), k.float()) * scale
-    if causal:
-        pos = torch.arange(S, device=q.device)
-        logits = logits.masked_fill(pos[None, :] > pos[:, None], NEG_INF)
-    probs = torch.softmax(logits, dim=-1)
+    probs = torch.softmax(_scores(q, k, causal=causal), dim=-1)
     return torch.einsum("bnqk,bknh->bqnh", probs, v.float()).to(q.dtype)

@@ -4,7 +4,9 @@ JAX package (or from any source that can hand over numpy arrays).
 The tree is nested dicts of numpy arrays in the reference's layout
 (``init_params``: stacked ``[L, in, out]`` matmul weights); the result is
 the same tree of torch tensors, leaf for leaf, so both packages compute
-the same function on the same numbers.
+the same function on the same numbers.  :func:`train_state_from_numpy`
+carries a training run across: the parameters with optax's AdamW moments
+and step count.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import numpy as np
 import torch
 
 from tputopo_torch.model import resolve_device
+from tputopo_torch.train import AdamState, TrainState
 
 
 def _leaf(a, device: torch.device, dtype: torch.dtype | None) -> torch.Tensor:
@@ -36,3 +39,21 @@ def params_from_numpy(tree, *, device=None, dtype: torch.dtype | None = None):
         return {k: params_from_numpy(v, device=dev, dtype=dtype)
                 for k, v in tree.items()}
     return _leaf(tree, dev, dtype)
+
+
+def train_state_from_numpy(params, mu, nu, count, step, *,
+                           device=None) -> TrainState:
+    """A JAX ``TrainState`` as numpy: its ``params`` tree, the ``mu``,
+    ``nu`` and ``count`` of its optax ``ScaleByAdamState``, and its
+    ``step`` -> the port's :class:`~.train.TrainState` on ``device``."""
+    dev = resolve_device(device)
+
+    def scalar(x) -> torch.Tensor:
+        return torch.tensor(int(np.asarray(x)), dtype=torch.int32, device=dev)
+
+    return TrainState(
+        params=params_from_numpy(params, device=dev),
+        opt_state=AdamState(count=scalar(count),
+                            mu=params_from_numpy(mu, device=dev),
+                            nu=params_from_numpy(nu, device=dev)),
+        step=scalar(step))

@@ -36,52 +36,9 @@
 // Pipelined loads (cp.async/TMA) and wgmma are later work: this version is
 // right and simple first.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
-
-constexpr int BQ = 64;   // q rows per block
-constexpr int BKV = 64;  // kv rows per step of the in-block loop
-constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two values into one 32-bit register, the first in the low half (the
-// lower row or column index of an mma fragment).
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  __nv_bfloat162 v = __halves2bfloat162(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Rows [row0, row0 + 64) of one head of a [B, S, N, H] bf16 tensor into a
-// [64][LD] shared tile, 16 bytes per thread per step; zeros past S and H.
-template <int HP, int LD>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
-                                               const __nv_bfloat16* src, int row0,
-                                               int S, int H, size_t row_stride) {
-  constexpr int CH = HP / 8;
-  for (int i = threadIdx.x; i < BQ * CH; i += blockDim.x) {
-    const int r = i / CH, c = (i % CH) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S && c < H)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-  }
-}
 
 template <int HCH>
 __global__ void __launch_bounds__(128)
@@ -110,13 +67,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
   __syncthreads();
   uint32_t qa[HCH][4];
 #pragma unroll
-  for (int kc = 0; kc < HCH; ++kc) {
-    const __nv_bfloat16* p = sQ + r0 * LD + kc * 16 + t * 2;
-    qa[kc][0] = *reinterpret_cast<const uint32_t*>(p);
-    qa[kc][1] = *reinterpret_cast<const uint32_t*>(p + 8 * LD);
-    qa[kc][2] = *reinterpret_cast<const uint32_t*>(p + 8);
-    qa[kc][3] = *reinterpret_cast<const uint32_t*>(p + 8 * LD + 8);
-  }
+  for (int kc = 0; kc < HCH; ++kc) load_a_frag<LD>(qa[kc], sQ, r0, kc, t);
 
   float acc[HN][4];
 #pragma unroll
@@ -139,11 +90,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
     for (int nt = 0; nt < 8; ++nt) {
       s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
 #pragma unroll
-      for (int kc = 0; kc < HCH; ++kc) {
-        const __nv_bfloat16* p = sK + (nt * 8 + g) * LD + kc * 16 + t * 2;
-        mma_bf16(s[nt], qa[kc], *reinterpret_cast<const uint32_t*>(p),
-                 *reinterpret_cast<const uint32_t*>(p + 8));
-      }
+      for (int kc = 0; kc < HCH; ++kc) mma_rows<LD>(s[nt], qa[kc], sK, nt, kc, g, t);
     }
 
     // Scale, mask, and the row max.  Fragment element e sits at row
@@ -195,13 +142,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
                               pack_f32(s[2 * kk][2], s[2 * kk][3]),
                               pack_f32(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                               pack_f32(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const __nv_bfloat16* pv = sV + (kk * 16 + t * 2) * LD + g;
-#pragma unroll
-      for (int hn = 0; hn < HN; ++hn) {
-        const uint32_t b0 = pack_bf16(pv[hn * 8], pv[LD + hn * 8]);
-        const uint32_t b1 = pack_bf16(pv[8 * LD + hn * 8], pv[9 * LD + hn * 8]);
-        mma_bf16(acc[hn], pa, b0, b1);
-      }
+      mma_cols<LD, HN>(acc, pa, sV, kk, g, t);
     }
   }
 
@@ -297,12 +238,6 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// Above 48 KB a block's dynamic shared memory must be allowed explicitly.
-template <typename Kern>
-cudaError_t allow_smem(Kern kern, size_t smem) {
-  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
 template <int HCH>
 cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void* o,
                    float* lse, int B, int S, int N, int H, int causal, float scale,
@@ -335,9 +270,7 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void*
 extern "C" int tputopo_flash_fwd(const void* q, const void* k, const void* v, void* o,
                                  void* lse, int B, int S, int N, int H, int causal,
                                  int dtype, float scale, void* stream) {
-  if (B < 1 || S < 1 || N < 1 || H < 8 || H > 128 || H % 8 != 0 ||
-      (dtype != 0 && dtype != 1) || (S + BQ - 1) / BQ > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, S, N, H, dtype)) return (int)cudaErrorInvalidValue;
   float* l = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch ((H + 15) / 16) {

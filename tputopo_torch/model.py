@@ -1,5 +1,5 @@
 """Llama-style decoder-only LM in PyTorch — the counterpart of
-``tputopo/workloads/model.py``, inference forward only.
+``tputopo/workloads/model.py``.
 
 The parameters keep the reference's layout: per-layer tensors stacked on a
 leading layer axis, matmul weights ``[L, in, out]`` contracted as
@@ -8,18 +8,23 @@ converts leaf for leaf (:mod:`tputopo_torch.convert`).  Compute runs in
 ``compute_dtype`` over float32 masters, as in the reference.
 
 Where JAX scans over the stacked layers, this module loops in Python.
-Attention goes through the port's flash kernel (:mod:`.attention`) when
+Attention goes through the port's flash kernels (:mod:`.attention`) when
 ``attn_impl`` resolves to flash, and through an einsum path otherwise.
+
+The forward is differentiable (:mod:`tputopo_torch.train` takes its
+grads).  When a backward pass is being recorded, ``remat`` takes effect
+per layer as in the reference's ``apply_remat``: ``"block"`` checkpoints
+the whole layer and recomputes it in the backward, ``"dots"`` keeps the
+matmul outputs and the flash forward's ``(o, lse)`` and recomputes the
+rest, ``"none"`` keeps everything.
 
 What this slice leaves out raises ``NotImplementedError``: MoE layers
 (``moe``), and the quantized or LoRA weight leaves (:mod:`.quant`).  The
 reference's context-parallel strategies (``sp_impl``) act only under an
 active multi-device mesh plan, which a single card never has; the port
-keeps the field and its eager check so configs carry over.  ``remat`` is
-checked and has no effect: :func:`forward` runs under ``torch.no_grad()``,
-so no activations are kept for a backward pass.  The reference's
-``constrain`` sharding annotations are the identity on one card and are
-dropped.
+keeps the field and its eager check so configs carry over.  The
+reference's ``constrain`` sharding annotations are the identity on one
+card and are dropped.
 
 Entry points run on ``cuda`` unless the caller asks for the CPU
 (``device="cpu"``); with no GPU and no such request they raise.
@@ -27,11 +32,14 @@ Entry points run on ``cuda`` unless the caller asks for the CPU
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from tputopo_torch.attention import flash_attention
 from tputopo_torch.quant import deq_rows, qdot, raw_weight
@@ -249,11 +257,44 @@ def _layer(layers: dict, i: int) -> dict:
     return {name: w[i] for name, w in layers.items()}
 
 
+# What remat="dots" keeps: every matmul output (the reference's
+# dots_saveable) and the flash forward's (o, lse), its "flash_out" and
+# "flash_lse" names.  A selective-checkpoint policy sees dispatcher ops, so
+# the flash launch is the op tputopo::flash_fwd (attention.py).
+_DOTS_SAVED = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                         torch.ops.tputopo.flash_fwd.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _DOTS_SAVED:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def apply_remat(block_fn, remat: str):
+    """Wrap one layer's function per the ``remat`` policy."""
+    if remat == "block":
+        return functools.partial(checkpoint, block_fn, use_reentrant=False)
+    if remat == "dots":
+        return functools.partial(
+            checkpoint, block_fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _dots_policy))
+    if remat == "none":
+        return block_fn
+    raise ValueError(f"unknown remat policy {remat!r}")
+
+
 def _block_loop(x: torch.Tensor, layers: dict, config: ModelConfig,
                 cos: torch.Tensor, sin: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    block = transformer_block
+    recording = torch.is_grad_enabled() and (x.requires_grad or any(
+        torch.is_tensor(w) and w.requires_grad for w in layers.values()))
+    if recording:  # remat is a memory policy of the backward pass only
+        block = apply_remat(transformer_block, config.remat)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(config.n_layers):
-        x, a = transformer_block(x, _layer(layers, i), config, cos, sin)
+        x, a = block(x, _layer(layers, i), config, cos, sin)
         aux = aux + a
     return x, aux
 
@@ -278,11 +319,10 @@ def lm_head(params: dict, x: torch.Tensor, config: ModelConfig) -> torch.Tensor:
     return x.float() @ w.to(config.compute_dtype).float()
 
 
-@torch.no_grad()
 def forward_with_aux(params: dict, tokens: torch.Tensor,
                      config: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """Token ids [B, S] -> (logits [B, S, vocab] f32, aux loss scalar), on
-    the device that holds ``params``."""
+    the device that holds ``params``; differentiable in the parameters."""
     c = config
     _check_supported(c)
     device = params["final_norm"].device
