@@ -97,8 +97,10 @@ BWD_F32_TOL = 5e-5
 BWD_BF16_NORM_REL = 1e-2
 
 # The forward and backward kernels' cases: both dtypes, causal and not,
-# uneven blocks, S not a multiple of the kernels' 64-row tile, H not a
-# multiple of 16, and the model's shape (last).
+# uneven blocks, S not a multiple of the kernels' tiles (64 rows for f32;
+# 128 and 64 for bf16, where a ragged tail lands inside a 128-row tile),
+# H not a multiple of 16, H = 64 (one 64-column box) and H = 128 (two),
+# and the model's shape (last).
 # (B, S, N, H, dtype, causal, block_q, block_kv)
 FLASH_CASES = [
     (2, 64, 2, 16, torch.float32, True, 16, 16),
@@ -107,6 +109,9 @@ FLASH_CASES = [
     (1, 200, 2, 128, torch.float32, True, 8, 8),
     (2, 96, 3, 32, torch.bfloat16, True, 32, 32),
     (1, 40, 2, 24, torch.bfloat16, False, 8, 20),
+    (1, 200, 2, 128, torch.bfloat16, True, 8, 8),
+    (2, 192, 2, 64, torch.bfloat16, True, 64, 64),
+    (1, 256, 2, 128, torch.bfloat16, False, 128, 128),
     (1, 2048, 32, 128, torch.bfloat16, True, 128, 128),
 ]
 
@@ -138,8 +143,12 @@ def check(cond: bool, msg: str) -> None:
         sys.exit(1)
 
 
-def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median device time of one call, from CUDA events around each."""
+def cuda_ms(fn, launches: int = 20, reps: int = 5, warmup: int = 3) -> float:
+    """Device time of one call: ``launches`` calls back to back between one
+    pair of CUDA events, divided by ``launches``; the median of ``reps``
+    such runs.  Back to back, the host's work for one call (argument
+    checks, allocation, the ctypes call) overlaps the device's work for the
+    calls before it, so what is timed is the device's."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -148,10 +157,11 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(launches):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / launches)
     return statistics.median(times)
 
 
@@ -172,13 +182,22 @@ def flash_bound_ms(B, S, N, H, dtype, causal, products=2, n_io=4,
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+# The first template argument of each entry function at H = 128: 16-column
+# chunks for the mma.sync and f32 bodies, 64-column TMA boxes for the
+# wgmma bodies.
+H128_ARG = {"bf16": "8", "f32": "8", "sm90": "2"}
+
+
 def ptxas_summary(log: str) -> dict:
-    """Registers and spills of each H = 128 entry function, from ptxas -v."""
+    """Registers and spills of each H = 128 entry function, from ptxas -v.
+    The wgmma bodies' count is ptxas' cap from their launch bounds; their
+    consumer warpgroups raise it to 240 at run time (setmaxnreg)."""
     out, name = {}, None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*?\d(flash_(?:fwd|dq|dkv)_(?:bf16|f32))ILi(\d)E", line)
+        m = re.search(r"Compiling entry function '\S*?\d(flash_(?:fwd|dq|dkv)_(bf16|f32|sm90))"
+                      r"ILi(\d)E", line)
         if m:
-            name = m.group(1) if m.group(2) == "8" else None
+            name = m.group(1) if m.group(3) == H128_ARG[m.group(2)] else None
             continue
         if name is None:
             continue
@@ -226,9 +245,8 @@ def phase_flash(att, kernel) -> dict:
     B, S, N, H = 1, 2048, 32, 128
     q, k, v = (torch.randn((B, S, N, H), generator=gen, device="cuda",
                            dtype=torch.bfloat16) for _ in range(3))
-    kernel_ms = cuda_ms(lambda: att.flash_forward_lse(q, k, v, causal=True,
-                                                      block_q=128, block_kv=128))
-    plain_ms = cuda_ms(lambda: att._flash_forward_lse_plain(q, k, v, causal=True), reps=5)
+    kernel_ms = cuda_ms(lambda: att._flash_forward_lse_cuda(q, k, v, causal=True))
+    plain_ms = cuda_ms(lambda: att._flash_forward_lse_plain(q, k, v, causal=True))
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True))
@@ -290,9 +308,9 @@ def phase_flash_bwd(att) -> list[dict]:
     args = (q, k, v, do, lse, d)
     times = {
         "dq": (cuda_ms(lambda: att._flash_dq_cuda(*args, causal=True)),
-               cuda_ms(lambda: att._flash_dq_plain(*args, causal=True), reps=5)),
+               cuda_ms(lambda: att._flash_dq_plain(*args, causal=True))),
         "dkv": (cuda_ms(lambda: att._flash_dkv_cuda(*args, causal=True)),
-                cuda_ms(lambda: att._flash_dkv_plain(*args, causal=True), reps=5)),
+                cuda_ms(lambda: att._flash_dkv_plain(*args, causal=True))),
     }
     # The yardstick: SDPA's backward, which computes dQ, dK and dV together.
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))

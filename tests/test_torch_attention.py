@@ -165,6 +165,10 @@ def test_cpu_tensors_take_the_plain_version():
     # bf16: P and O are rounded at different points on the two sides.
     ("bfloat16", True, (2, 96, 3, 32), 1.6e-2),
     ("bfloat16", False, (1, 40, 2, 24), 1.6e-2),
+    # ragged S inside a 128-row tile; H = 64 (one TMA box); two boxes, all keys
+    ("bfloat16", True, (1, 200, 2, 128), 1.6e-2),
+    ("bfloat16", True, (2, 192, 2, 64), 1.6e-2),
+    ("bfloat16", False, (1, 256, 2, 128), 1.6e-2),
 ])
 def test_cuda_kernel_matches_plain_version(cuda, dtype, causal, shape, tol):
     dt = getattr(torch, dtype)
@@ -186,6 +190,9 @@ def test_cuda_kernel_matches_plain_version(cuda, dtype, causal, shape, tol):
     # only roundings of nearly equal f32 values may differ (chip_smoke.py).
     ("bfloat16", True, (2, 96, 3, 32), 1e-2),
     ("bfloat16", False, (1, 40, 2, 24), 1e-2),
+    ("bfloat16", True, (1, 200, 2, 128), 1e-2),
+    ("bfloat16", True, (2, 192, 2, 64), 1e-2),
+    ("bfloat16", False, (1, 256, 2, 128), 1e-2),
 ])
 def test_cuda_backward_kernels_match_plain_versions(cuda, dtype, causal, shape, tol):
     dt = getattr(torch, dtype)

@@ -3,7 +3,7 @@
 Each kernel is one ``csrc/*.cu`` file with a plain C interface.  It is
 compiled by ``nvcc`` for ``sm_90a`` into a shared library the first time a
 process launches it, and loaded with ``ctypes``.  The library's name
-carries a hash of its source and of every ``csrc/*.cuh`` header, so an
+carries a hash of its source and of every ``*.cuh`` header beside it, so an
 edited source or header is rebuilt and a stale library is never loaded.
 Nothing here runs at import time: the CPU tests import every module on a
 machine with no ``nvcc`` and no card.
@@ -42,21 +42,32 @@ def _nvcc() -> str:
 class Kernel:
     """One ``csrc`` source, its built library and its launch count.
 
+    The source's C entry ``tputopo_<name>`` takes ``n_ptrs`` pointers (the
+    tensors), then B, S, N, H, causal and dtype as ints, the softmax scale
+    as a float and the stream (:attr:`argtypes`).
     ``launches`` is a plain integer that the kernel's wrapper raises by
     one where it launches the kernel, and nowhere else, so a run can show
     that its main path went through the kernel."""
 
-    def __init__(self, name: str, source: str):
+    def __init__(self, name: str, source: str, n_ptrs: int):
         self.name = name
         self.source = CSRC / source
+        self.n_ptrs = n_ptrs
+        self.symbol = f"tputopo_{name}"
         self.launches = 0
         self.build_log = ""
         self.build_seconds = 0.0
         self._lib: ctypes.CDLL | None = None
+        self._entry = None
+
+    @property
+    def argtypes(self) -> list:
+        return ([ctypes.c_void_p] * self.n_ptrs + [ctypes.c_int] * 6
+                + [ctypes.c_float, ctypes.c_void_p])
 
     def library_path(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes())
-        for header in sorted(CSRC.glob("*.cuh")):  # shared by the sources
+        for header in sorted(self.source.parent.glob("*.cuh")):  # the source's includes
             h.update(header.read_bytes())
         digest = h.hexdigest()[:12]
         return BUILD_DIR / f"lib{self.name}-{digest}.so"
@@ -85,10 +96,19 @@ class Kernel:
             self._lib = ctypes.CDLL(str(self.build()))
         return self._lib
 
+    def entry(self):
+        """The C entry point, its argument and result types set once."""
+        if self._entry is None:
+            fn = getattr(self.lib(), self.symbol)
+            fn.restype = ctypes.c_int
+            fn.argtypes = self.argtypes
+            self._entry = fn
+        return self._entry
 
-FLASH_FWD = Kernel("flash_fwd", "flash_fwd.cu")
-FLASH_DQ = Kernel("flash_bwd_dq", "flash_bwd_dq.cu")
-FLASH_DKV = Kernel("flash_bwd_dkv", "flash_bwd_dkv.cu")
+
+FLASH_FWD = Kernel("flash_fwd", "flash_fwd.cu", n_ptrs=5)          # q k v o lse
+FLASH_DQ = Kernel("flash_bwd_dq", "flash_bwd_dq.cu", n_ptrs=7)     # q k v do lse d dq
+FLASH_DKV = Kernel("flash_bwd_dkv", "flash_bwd_dkv.cu", n_ptrs=8)  # q k v do lse d dk dv
 KERNELS = (FLASH_FWD, FLASH_DQ, FLASH_DKV)
 
 

@@ -28,8 +28,6 @@ equal head counts (callers expand GQA groups first).  The LSE is an f32
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from tputopo_torch import _kernels
@@ -116,12 +114,13 @@ def _flash_d(o, do):
 
 # ---- the kernels' wrappers ------------------------------------------------
 
-def _launch(kernel: _kernels.Kernel, tensors: dict, rows: dict, causal: bool,
-            outputs: tuple):
-    """Check the arguments, launch ``kernel`` on the current stream, count
-    the launch.  ``tensors`` are the [B, S, N, H] operands (q first),
+def _launch_args(kernel: _kernels.Kernel, tensors: dict, rows: dict, causal: bool,
+                 outputs: dict) -> tuple:
+    """Check the arguments of ``kernel``'s C entry and return them, the
+    stream aside.  ``tensors`` are the [B, S, N, H] operands (q first),
     ``rows`` the [B*N, S] f32 ones; the C function takes their pointers in
-    that order, then ``outputs``' pointers."""
+    that order, then ``outputs``' pointers, B, S, N, H, causal, the dtype's
+    code and the softmax scale."""
     q = tensors["q"]
     B, S, N, H = q.shape
     if q.dtype not in _DTYPE_CODE:
@@ -137,21 +136,27 @@ def _launch(kernel: _kernels.Kernel, tensors: dict, rows: dict, causal: bool,
             raise ValueError(f"{name} is {t.dtype}, q is {q.dtype}")
         if t.shape != q.shape or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous {tuple(q.shape)}")
+        if q.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            # the bf16 kernels read their tiles by TMA, which needs this
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     for name, t in rows.items():
         if (t.device != q.device or t.dtype != torch.float32
                 or t.shape != (B * N, S) or not t.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous f32 [{B * N}, {S}] "
                              f"tensor on {q.device}")
-    ptrs = [t.data_ptr() for t in (*tensors.values(), *rows.values(), *outputs)]
-    fn = getattr(kernel.lib(), f"tputopo_{kernel.name}")
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_void_p])
+    ptrs = [t.data_ptr() for t in (*tensors.values(), *rows.values(), *outputs.values())]
+    return (*ptrs, B, S, N, H, int(causal), _DTYPE_CODE[q.dtype], 1.0 / (H ** 0.5))
+
+
+def _launch(kernel: _kernels.Kernel, tensors: dict, rows: dict, causal: bool,
+            outputs: dict):
+    """Launch ``kernel`` on the current stream and count the launch."""
+    args = _launch_args(kernel, tensors, rows, causal, outputs)
+    q = tensors["q"]
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*ptrs, B, S, N, H, int(causal), _DTYPE_CODE[q.dtype],
-                 1.0 / (H ** 0.5), stream)
+        err = kernel.entry()(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
+        B, S, N, H = q.shape
         raise RuntimeError(f"{kernel.name} kernel launch failed: cudaError {err} "
                            f"(B={B}, S={S}, N={N}, H={H}, {q.dtype})")
     kernel.launches += 1
@@ -162,7 +167,8 @@ def _flash_forward_lse_cuda(q, k, v, *, causal):
     B, S, N, _ = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((B * N, S), dtype=torch.float32, device=q.device)
-    _launch(_kernels.FLASH_FWD, {"q": q, "k": k, "v": v}, {}, causal, (o, lse))
+    _launch(_kernels.FLASH_FWD, {"q": q, "k": k, "v": v}, {}, causal,
+            {"o": o, "lse": lse})
     return o, lse
 
 
@@ -170,7 +176,7 @@ def _flash_dq_cuda(q, k, v, do, lse, d, *, causal):
     """Launch ``csrc/flash_bwd_dq.cu``."""
     dq = torch.empty_like(q)
     _launch(_kernels.FLASH_DQ, {"q": q, "k": k, "v": v, "do": do},
-            {"lse": lse, "d": d}, causal, (dq,))
+            {"lse": lse, "d": d}, causal, {"dq": dq})
     return dq
 
 
@@ -178,7 +184,7 @@ def _flash_dkv_cuda(q, k, v, do, lse, d, *, causal):
     """Launch ``csrc/flash_bwd_dkv.cu``."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch(_kernels.FLASH_DKV, {"q": q, "k": k, "v": v, "do": do},
-            {"lse": lse, "d": d}, causal, (dk, dv))
+            {"lse": lse, "d": d}, causal, {"dk": dk, "dv": dv})
     return dk, dv
 
 

@@ -1,6 +1,8 @@
-// Shared pieces of the flash-attention kernels (flash_fwd.cu,
-// flash_bwd_dq.cu, flash_bwd_dkv.cu): the tile sizes, the bf16 mma.sync
-// m16n8k16 wrapper, register packing, and the tile loaders.
+// Shared pieces of the flash-attention kernels: the f32 bodies' tile sizes,
+// the argument check and register packing (all three sources), and the bf16
+// mma.sync m16n8k16 wrapper and tile loaders of flash_bwd_dq.cu.  The wgmma
+// bodies of flash_fwd.cu and flash_bwd_dkv.cu take their Hopper pieces from
+// sm90.cuh.
 //
 // mma.sync m16n8k16 fragment layout, with g = lane / 4 and t = lane % 4:
 //   A (16 x 16, row major)  a0: row g,     cols 2t, 2t+1    a1: row g+8, cols 2t, 2t+1
@@ -10,8 +12,8 @@
 // So an f32 accumulator over two neighbouring 8-column tiles is, packed to
 // bf16 pairwise, the A operand of the next product over those 16 columns.
 //
-// Every source that includes this header is rebuilt when it changes: the
-// library's name hashes the .cu and every .cuh of csrc/ (_kernels.py).
+// Every source is rebuilt when a header changes: the library's name hashes
+// the .cu and every .cuh of csrc/ (_kernels.py).
 
 #pragma once
 
