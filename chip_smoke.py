@@ -100,7 +100,9 @@ BWD_BF16_NORM_REL = 1e-2
 # uneven blocks, S not a multiple of the kernels' tiles (64 rows for f32;
 # 128 and 64 for bf16, where a ragged tail lands inside a 128-row tile),
 # H not a multiple of 16, H = 64 (one 64-column box) and H = 128 (two),
-# and the model's shape (last).
+# S = 320 (five 64-row tiles, an odd count for a two-stage ring, and a
+# ragged third 128-row tile whose two halves see different tile counts
+# under the causal mask), and the model's shape (last).
 # (B, S, N, H, dtype, causal, block_q, block_kv)
 FLASH_CASES = [
     (2, 64, 2, 16, torch.float32, True, 16, 16),
@@ -112,6 +114,8 @@ FLASH_CASES = [
     (1, 200, 2, 128, torch.bfloat16, True, 8, 8),
     (2, 192, 2, 64, torch.bfloat16, True, 64, 64),
     (1, 256, 2, 128, torch.bfloat16, False, 128, 128),
+    (1, 320, 2, 128, torch.bfloat16, True, 64, 64),
+    (1, 320, 2, 128, torch.bfloat16, False, 64, 64),
     (1, 2048, 32, 128, torch.bfloat16, True, 128, 128),
 ]
 
@@ -183,9 +187,8 @@ def flash_bound_ms(B, S, N, H, dtype, causal, products=2, n_io=4,
 
 
 # The first template argument of each entry function at H = 128: 16-column
-# chunks for the mma.sync and f32 bodies, 64-column TMA boxes for the
-# wgmma bodies.
-H128_ARG = {"bf16": "8", "f32": "8", "sm90": "2"}
+# chunks for the f32 bodies, 64-column TMA boxes for the wgmma bodies.
+H128_ARG = {"f32": "8", "sm90": "2"}
 
 
 def ptxas_summary(log: str) -> dict:
@@ -194,10 +197,9 @@ def ptxas_summary(log: str) -> dict:
     consumer warpgroups raise it to 240 at run time (setmaxnreg)."""
     out, name = {}, None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*?\d(flash_(?:fwd|dq|dkv)_(bf16|f32|sm90))"
-                      r"ILi(\d)E", line)
-        if m:
-            name = m.group(1) if m.group(3) == H128_ARG[m.group(2)] else None
+        if "Compiling entry function" in line:
+            m = re.search(r"'\S*?\d(flash_(?:fwd|dq|dkv)_(f32|sm90))ILi(\d)E", line)
+            name = m.group(1) if m and m.group(3) == H128_ARG[m.group(2)] else None
             continue
         if name is None:
             continue

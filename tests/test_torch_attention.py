@@ -169,6 +169,10 @@ def test_cpu_tensors_take_the_plain_version():
     ("bfloat16", True, (1, 200, 2, 128), 1.6e-2),
     ("bfloat16", True, (2, 192, 2, 64), 1.6e-2),
     ("bfloat16", False, (1, 256, 2, 128), 1.6e-2),
+    # five 64-row kv tiles (an odd count for a two-stage ring) and a ragged
+    # third 128-row q tile, whose halves see different tile counts if causal
+    ("bfloat16", True, (1, 320, 2, 128), 1.6e-2),
+    ("bfloat16", False, (1, 320, 2, 128), 1.6e-2),
 ])
 def test_cuda_kernel_matches_plain_version(cuda, dtype, causal, shape, tol):
     dt = getattr(torch, dtype)
@@ -193,6 +197,8 @@ def test_cuda_kernel_matches_plain_version(cuda, dtype, causal, shape, tol):
     ("bfloat16", True, (1, 200, 2, 128), 1e-2),
     ("bfloat16", True, (2, 192, 2, 64), 1e-2),
     ("bfloat16", False, (1, 256, 2, 128), 1e-2),
+    ("bfloat16", True, (1, 320, 2, 128), 1e-2),
+    ("bfloat16", False, (1, 320, 2, 128), 1e-2),
 ])
 def test_cuda_backward_kernels_match_plain_versions(cuda, dtype, causal, shape, tol):
     dt = getattr(torch, dtype)

@@ -109,6 +109,13 @@ def test_header_note_names_the_pallas_kernel_it_replaces(source):
     assert "What bounds it on this card" in source.read_text()
 
 
+@pytest.mark.parametrize("source", sorted(_kernels.CSRC.glob("*.cu*")), ids=lambda s: s.name)
+def test_no_warp_level_mma_sync_left(source):
+    """Every bf16 body runs its products on wgmma (sm90.cuh); the
+    warp-level mma.sync bodies and their helpers are gone."""
+    assert "mma.sync" not in source.read_text()
+
+
 def test_bf16_tensor_off_a_16_byte_boundary_raises():
     """The bf16 kernels read their tiles by TMA, which takes a base address
     on a 16-byte boundary: the wrapper refuses anything else, with no other

@@ -18,11 +18,11 @@
 //
 // What bounds it on this card: four products per (q, kv) pair, 8 S^2/2 H
 // flops per head when causal against ~6 S H bytes: bound by tensor-core
-// operations at the model's shape.  What kept the first version (mma.sync,
-// PR 2) at ~12x its bound: no load overlapped the math (two block barriers
-// per q tile), the B operands of P^T dO and dS^T Q were gathered from
-// shared memory one bf16 at a time, mma.sync, and 255 registers with a
-// spill.  The bf16 design:
+// operations at the model's shape.  What kept the first version
+// (warp-level MMA) at ~12x its bound: no load overlapped the math (two
+// block barriers per q tile), the B operands of P^T dO and dS^T Q were
+// gathered from shared memory one bf16 at a time, the warp-level MMA, and
+// 255 registers with a spill.  The bf16 design:
 //  - one block per (b*n, 128-row kv tile), kv tiles issued heaviest first
 //    (when causal, tile 0 sees every q tile); a loop inside the block walks
 //    the 64-row q tiles (when causal, only those at or below the diagonal).

@@ -19,10 +19,10 @@
 // bf16, causal) the work is ~S/2 multiply-adds for every byte the kernel
 // must move, far above the H100's ~295 operations per byte, so it is bound
 // by tensor-core operations, not by memory.  What kept the first version
-// (mma.sync m16n8k16, PR 1) at ~14x its bound: no copy overlapped the math
-// (plain loads between two block barriers per kv tile), the B operand of
-// P V was gathered from shared memory one bf16 at a time, and mma.sync does
-// not reach Hopper's tensor-core rate.  The bf16 design:
+// (warp-level MMA m16n8k16) at ~14x its bound: no copy overlapped the
+// math (plain loads between two block barriers per kv tile), the B operand
+// of P V was gathered from shared memory one bf16 at a time, and the
+// warp-level MMA does not reach Hopper's tensor-core rate.  The bf16 design:
 //  - one block per (b*n, 128-row q tile), q tiles issued heaviest first
 //    (causal work grows with the tile index).  Three warpgroups: two
 //    consumers of 64 q rows each, one producer.  The producer gives up its
@@ -36,7 +36,7 @@
 //  - both products on wgmma: S = Q K^T (m64n128k16, Q and K from shared
 //    memory, K-major), then O += P V (m64nHk16, P from registers, V from
 //    shared memory MN-major).  P is S's accumulator packed pairwise to bf16
-//    in registers: per warp the wgmma accumulator has the mma.sync A layout,
+//    in registers: per warp the wgmma accumulator has the m16n8k16 A layout,
 //    so P never reaches shared memory;
 //  - the softmax runs on scores prescaled by scale * log2(e), with exp2f;
 //    the LSE is converted back to natural-log units on the way out;

@@ -20,7 +20,7 @@
 //
 // wgmma accumulator layout (m64nN, f32), per warp w of the warpgroup and
 // lane = 4 g + t: d[4 j + e] sits at row 16 w + g + 8 (e >> 1), column
-// 8 j + 2 t + (e & 1).  That is the mma.sync m16n8k16 C layout, tile by
+// 8 j + 2 t + (e & 1).  That is the warp-level m16n8k16 C layout, tile by
 // tile, so an accumulator over columns [16 kk, 16 kk + 16), packed to bf16
 // pairwise, is the register A operand of the next product over those
 // columns: {d[8kk], d[8kk+1]}, {d[8kk+2], d[8kk+3]}, {d[8kk+4], d[8kk+5]},
@@ -218,7 +218,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t d
 }
 
 // D (64 x 128 f32) = A (64 x 16) B (16 x 128) + (accumulate ? D : 0), A in
-// registers (the mma.sync m16n8k16 A layout, per warp), B in shared memory,
+// registers (the warp-level m16n8k16 A layout, per warp), B in shared memory,
 // MN-major.
 __device__ __forceinline__ void wgmma_rs_mn(float (&d)[64], const uint32_t (&a)[4],
                                             uint64_t db, int accumulate) {
@@ -246,7 +246,7 @@ __device__ __forceinline__ void wgmma_rs_mn(float (&d)[64], const uint32_t (&a)[
 }
 
 // D (64 x 64 f32) = A (64 x 16) B (16 x 64) + (accumulate ? D : 0), A in
-// registers (the mma.sync m16n8k16 A layout, per warp), B in shared memory,
+// registers (the warp-level m16n8k16 A layout, per warp), B in shared memory,
 // MN-major.
 __device__ __forceinline__ void wgmma_rs_mn(float (&d)[32], const uint32_t (&a)[4],
                                             uint64_t db, int accumulate) {
