@@ -21,13 +21,21 @@ Phases, each printed as one JSON line on stdout:
    the flash kernel once per layer, the logits must be finite and agree
    with the einsum path within a stated bound;
 5. greedy KV-cache decoding at full width, twice, with identical tokens;
-6. training at Llama-3-8B width, depth cut to 4 layers (below): loss and
+6. serving at full width, 32 layers: the continuous-batching engine (8
+   slots, chunked prefill, one shared prefix, streaming) over a seeded
+   stream of 24 requests, twice with identical tokens, every greedy pick
+   held against the whole forward and no flash launch; then the same
+   stream with int8 weights and an int8 KV cache, and a few requests with
+   grouped int4 weights at 4 layers (below), each against its own tree's
+   forward;
+7. training at Llama-3-8B width, depth cut to 4 layers (below): loss and
    grads through the kernels against the einsum path, then three AdamW
    steps on one batch, each launching the forward kernel 2·L times and
    each backward kernel L times, with the loss falling; then one
    loss-and-grads under each remat policy.
 
-Then one ``kernels`` line, the card's ``nvidia-smi`` line, and as the last
+Then the seconds of each phase, one ``kernels`` line, the card's
+``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
 before that line.  Without a GPU, or without the repository beside it,
 the script fails.
@@ -46,7 +54,9 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 REPO = Path(__file__).resolve().parent
 
@@ -82,6 +92,40 @@ FWD_TOP1 = 0.9
 # several units below the max.
 GEN_GAP = 2 * FWD_MAX_ABS
 GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 128, 8
+
+# Serving: the continuous-batching engine over the same 32-layer weights, 8
+# slots over a 2048-row cache, prefill buckets 128/512/1024, greedy and with
+# no EOS (random weights make any EOS id arbitrary).  The wider buckets
+# prefill in chunks of 128: the engine, as the reference's, needs the chunk
+# to divide every bucket, so 256 would refuse the 128 bucket.
+SERVE_ENGINE = dict(slots=8, max_len=2048, prompt_pad=(128, 512, 1024),
+                    prefill_chunk=128, eos_id=-1)
+# The stream: 24 requests, prompt lengths uniform in 16-1000 and max_new in
+# 8-48 from a seeded generator, every third request behind one registered
+# 256-token prefix (its prompt is then the suffix), all submitted at once.
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW, SERVE_PREFIX = 24, (16, 1000), (8, 48), 256
+# The profiled window: ticks of an engine serving the whole stream, after
+# the first ticks have filled its slots.  A whole run traces ~4,500 events a
+# tick, whose post-processing took minutes on the card's host (~4 s a tick).
+SERVE_WARM_TICKS, SERVE_PROFILED_TICKS = 8, 5
+# int8 weights and an int8 KV cache, each pick against the int8 tree's own
+# forward, whose K/V are never quantized.  Besides the bf16 difference of the
+# two computations (GEN_GAP), the cache rounds every K and V row to 1/254 of
+# its absmax, which moves each attention logit and output by up to ~0.4% of
+# the row's magnitude per layer, compounded over 32 layers; the bound doubles
+# GEN_GAP for it.  These phases run on the CPU at d_model 512, 32 layers,
+# vocab 128256 and a 6-request stream gave max gap 0.038 (top-1 0.973) here,
+# 0.0 with the bf16 cache; the bound is for the wider model and the longer
+# stream.
+SERVE_INT8_GAP = 2 * GEN_GAP
+SERVE_INT8_BYTE_RATIO = 0.55  # the reference's bound (tests/test_quant.py)
+# Grouped int4 (group 128) at full width, depth cut to 4 layers for the run's
+# time only: the plain unpack-per-call int4 matmul rebuilds an f32 copy of
+# each weight on every call.  Four short requests, two behind the prefix, so
+# the check's forwards stay small: their f32 group partials of the int4 head
+# are [tokens, 32, 128256].  Its KV cache is bf16: GEN_GAP holds.
+SERVE_INT4_LAYERS, SERVE_INT4_GROUP = 4, 128
+SERVE_INT4_REQUESTS, SERVE_INT4_PROMPT, SERVE_INT4_NEW = 4, (16, 512), (8, 16)
 
 # Backward kernels against their plain versions.  f32: the reference's grad
 # tolerance (tests/test_attention.py:90), elementwise.  bf16, as
@@ -213,11 +257,16 @@ def ptxas_summary(log: str) -> dict:
     return out
 
 
-def card() -> str:
+def card(query: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def card_state() -> str:
+    """SM clock, power draw and temperature, sampled beside a window."""
+    return card("clocks.sm,power.draw,temperature.gpu")
 
 
 def phase_flash(att, kernel) -> dict:
@@ -429,6 +478,222 @@ def phase_generate(tt, kernels, params, cfg) -> torch.Tensor:
     return prompt
 
 
+def serve_stream(vocab: int, seed: int, n: int, prompt: tuple, new: tuple,
+                 every: int) -> tuple:
+    """A seeded request stream: (prefix, [(prompt, max_new, behind the
+    prefix?), ...]); request i goes behind the prefix when i % every == 0."""
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, vocab, SERVE_PREFIX).tolist()
+    reqs = []
+    for i in range(n):
+        plen, m = int(rng.integers(prompt[0], prompt[1] + 1)), int(rng.integers(new[0], new[1] + 1))
+        reqs.append((rng.integers(0, vocab, plen).tolist(), m, i % every == 0))
+    return prefix, reqs
+
+
+def run_engine(tt, params, cfg, prefix, reqs) -> dict:
+    """One engine serving the stream, every request submitted at once;
+    the host clock from before the prefix's registration to the drained
+    queue.  Time to first token is, per request, from its submit to the
+    streaming callback's first call for it."""
+    first: dict[int, float] = {}
+
+    def on_tokens(rid, toks):
+        first.setdefault(rid, time.perf_counter())
+
+    eng = tt.ServingEngine(params, cfg, on_tokens=on_tokens, **SERVE_ENGINE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pid = eng.register_prefix(prefix)
+    ids, submitted = [], {}
+    for p, m, behind in reqs:
+        rid = eng.submit(p, max_new=m, prefix=pid if behind else None)
+        submitted[rid] = time.perf_counter()
+        ids.append(rid)
+    res = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = [res[r] for r in ids]
+    plens = [len(p) + (len(prefix) if behind else 0) for p, _, behind in reqs]
+    ttft = sorted(first[r] - submitted[r] for r in ids)
+    generated = sum(len(row) - n for row, n in zip(rows, plens))
+    return {"rows": rows, "plens": plens, "wall_s": wall,
+            "generated": generated, "tokens_per_s": generated / wall,
+            "ttft_p50_s": statistics.median(ttft),
+            "ttft_p95_s": ttft[math.ceil(0.95 * len(ttft)) - 1],
+            "metrics": dict(eng.metrics)}
+
+
+def picks_vs_forward(tt, params, cfg, rows, plens) -> dict:
+    """Each request's greedy picks against the whole forward over its
+    prompt and tokens: the largest logit gap of a pick below the forward's
+    max, and the top-1 rate."""
+    gap, hits, total = 0.0, 0, 0
+    for row, n in zip(rows, plens):
+        toks = torch.tensor([row], device=params["final_norm"].device)
+        full = tt.forward(params, toks[:, :-1], cfg)[0, n - 1:]
+        picks = toks[0, n:]
+        gap = max(gap, (full.amax(-1) - full.gather(-1, picks[:, None])[:, 0]).max().item())
+        hits += int((full.argmax(-1) == picks).sum())
+        total += picks.numel()
+        del full
+    return {"vs_forward_max_gap": gap, "vs_forward_top1": hits / total}
+
+
+class _OpCount(TorchDispatchMode):
+    """Counts the ATen operations dispatched inside it: each is a host
+    round trip through the dispatcher and, on the card, a kernel launch."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+def ops_per_decode_step(params, cfg) -> int:
+    """ATen operations of one engine decode step at SERVE_ENGINE's shape
+    (the same for any occupancy: idle slots compute masked no-ops)."""
+    from tputopo_torch import serving
+
+    state = serving.init_state(cfg, SERVE_ENGINE["slots"], SERVE_ENGINE["max_len"],
+                               device=params["final_norm"].device)
+    with _OpCount() as count:
+        serving.decode_step(params, state, cfg, -1)
+    return count.n
+
+
+def check_rows(rows, plens, reqs, prefix, vocab, what) -> None:
+    for row, n, (p, m, behind) in zip(rows, plens, reqs):
+        check(len(row) == n + m, f"{what}: a request got {len(row) - n} tokens, want {m}")
+        check(row[:n] == (prefix if behind else []) + p, f"{what}: prompt not echoed")
+        check(all(0 <= t < vocab for t in row[n:]), f"{what}: token ids out of range")
+
+
+def phase_serve(tt, kernels, params, cfg) -> tuple:
+    """The engine at full width, 32 layers, bf16 over the f32 masters: the
+    stream twice, identical tokens, every pick within GEN_GAP of the
+    forward, no flash launch (serving attends through einsums, as the
+    reference's does).  Returns (stream, flash launches of the two runs)."""
+    t_phase = time.perf_counter()
+    prefix, reqs = serve_stream(cfg.vocab_size, 5, SERVE_REQUESTS, SERVE_PROMPT,
+                                SERVE_NEW, every=3)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    state = card_state()
+    runs = [run_engine(tt, params, cfg, prefix, reqs) for _ in range(2)]
+    launches = {k.name: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    a, b = runs
+    check(a["rows"] == b["rows"], "serve: the two runs gave different tokens")
+    check_rows(b["rows"], b["plens"], reqs, prefix, cfg.vocab_size, "serve")
+    check(all(n == 0 for n in launches.values()),
+          f"serve launched a flash kernel: {launches}")
+    vs = picks_vs_forward(tt, params, cfg, b["rows"], b["plens"])
+    rec = {"phase": "serve", "model": "llama3_8b", "layers": cfg.n_layers,
+           "weights": "f32 masters, bf16 compute", "kv": "bf16",
+           "engine": {k: list(v) if isinstance(v, tuple) else v
+                      for k, v in SERVE_ENGINE.items()},
+           "requests": len(reqs), "behind_prefix": sum(r[2] for r in reqs),
+           "prompt_tokens": sum(b["plens"]), "generated": b["generated"],
+           "wall_s": [a["wall_s"], b["wall_s"]],
+           "tokens_per_s": [a["tokens_per_s"], b["tokens_per_s"]],
+           "ttft_p50_s": [a["ttft_p50_s"], b["ttft_p50_s"]],
+           "ttft_p95_s": [a["ttft_p95_s"], b["ttft_p95_s"]],
+           "metrics": b["metrics"], "identical_runs": True, "launches": launches,
+           "peak_mem_gb": peak, **vs, "bound_max_gap": GEN_GAP,
+           "ops_per_decode_step": ops_per_decode_step(params, cfg),
+           "card_state_before": state, "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    check(vs["vs_forward_max_gap"] <= GEN_GAP,
+          f"serve: a pick is not the forward's greedy pick: {rec['vs_forward_max_gap']}")
+    return (prefix, reqs), launches
+
+
+def phase_serve_int8(tt, params, cfg, stream) -> None:
+    """int8 weights (quantized on the card) and an int8 KV cache, the same
+    stream through the same engine settings."""
+    t_phase = time.perf_counter()
+    prefix, reqs = stream
+    qp = tt.quantize_params(params, bits=8)
+    raw_b, int8_b = tt.streamed_bytes(params), tt.streamed_bytes(qp)
+    # The weight cast each matmul pays, on one layer's w_gate [4096, 14336].
+    cast_ms = {name: cuda_ms(lambda w=w: w[0].to(torch.bfloat16)) for name, w in (
+        ("f32_to_bf16", params["layers"]["w_gate"]),
+        ("int8_to_bf16", qp["layers"]["w_gate"]["int8"]))}
+    qcfg = dataclasses.replace(cfg, kv_dtype="int8")
+    torch.cuda.reset_peak_memory_stats()
+    run = run_engine(tt, qp, qcfg, prefix, reqs)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check_rows(run["rows"], run["plens"], reqs, prefix, cfg.vocab_size, "serve_int8")
+    vs = picks_vs_forward(tt, qp, cfg, run["rows"], run["plens"])
+    ops = ops_per_decode_step(qp, qcfg)
+    del qp
+    rec = {"phase": "serve_int8", "model": "llama3_8b", "layers": cfg.n_layers,
+           "weights": "int8 per output channel", "kv": "int8",
+           "requests": len(reqs), "generated": run["generated"],
+           "wall_s": run["wall_s"], "tokens_per_s": run["tokens_per_s"],
+           "ttft_p50_s": run["ttft_p50_s"], "ttft_p95_s": run["ttft_p95_s"],
+           "metrics": run["metrics"], "streamed_bytes_raw": raw_b,
+           "streamed_bytes_int8": int8_b, "byte_ratio": int8_b / raw_b,
+           "w_gate_layer_cast_ms": cast_ms,
+           "ops_per_decode_step": ops,
+           "bound_byte_ratio": SERVE_INT8_BYTE_RATIO, "peak_mem_gb": peak, **vs,
+           "bound_max_gap": SERVE_INT8_GAP, "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    check(int8_b / raw_b < SERVE_INT8_BYTE_RATIO, f"serve_int8: byte ratio {rec}")
+    check(vs["vs_forward_max_gap"] <= SERVE_INT8_GAP,
+          f"serve_int8: a pick is off the int8 forward's: {rec['vs_forward_max_gap']}")
+
+
+def phase_serve_int4(tt, params, cfg) -> None:
+    """Grouped int4 at full width, SERVE_INT4_LAYERS layers: a few requests
+    against the int4 tree's own forward."""
+    t_phase = time.perf_counter()
+    cfg4 = dataclasses.replace(cfg, n_layers=SERVE_INT4_LAYERS)
+    cut = dict(params, layers={k: v[:SERVE_INT4_LAYERS] for k, v in params["layers"].items()})
+    qp = tt.quantize_params(cut, bits=4, group_size=SERVE_INT4_GROUP)
+    raw_b, int4_b = tt.streamed_bytes(cut), tt.streamed_bytes(qp)
+    prefix, reqs = serve_stream(cfg.vocab_size, 6, SERVE_INT4_REQUESTS,
+                                SERVE_INT4_PROMPT, SERVE_INT4_NEW, every=2)
+    run = run_engine(tt, qp, cfg4, prefix, reqs)
+    check_rows(run["rows"], run["plens"], reqs, prefix, cfg.vocab_size, "serve_int4")
+    vs = picks_vs_forward(tt, qp, cfg4, run["rows"], run["plens"])
+    del qp
+    rec = {"phase": "serve_int4", "model": "llama3_8b", "layers": SERVE_INT4_LAYERS,
+           "reduced": {"n_layers": [cfg.n_layers, SERVE_INT4_LAYERS]},
+           "weights": f"int4, group {SERVE_INT4_GROUP}", "kv": "bf16",
+           "requests": len(reqs), "generated": run["generated"],
+           "wall_s": run["wall_s"], "tokens_per_s": run["tokens_per_s"],
+           "metrics": run["metrics"], "streamed_bytes_raw": raw_b,
+           "streamed_bytes_int4": int4_b, "byte_ratio": int4_b / raw_b, **vs,
+           "bound_max_gap": GEN_GAP, "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    check(vs["vs_forward_max_gap"] <= GEN_GAP,
+          f"serve_int4: a pick is off the int4 forward's: {rec['vs_forward_max_gap']}")
+
+
+def profile_serve(tt, params, cfg, prefix, reqs) -> None:
+    """Device profile of the bf16 engine serving the stream: the window of
+    SERVE_PROFILED_TICKS ticks after SERVE_WARM_TICKS."""
+    eng = tt.ServingEngine(params, cfg, **SERVE_ENGINE)
+    pid = eng.register_prefix(prefix)
+    for p, m, behind in reqs:
+        eng.submit(p, max_new=m, prefix=pid if behind else None)
+    for _ in range(SERVE_WARM_TICKS):
+        eng.step()
+    before = dict(eng.metrics)
+    state = card_state()
+    rec = device_profile("serve", lambda: [eng.step() for _ in range(SERVE_PROFILED_TICKS)])
+    emit({**rec, "ticks": [SERVE_WARM_TICKS, SERVE_WARM_TICKS + SERVE_PROFILED_TICKS],
+          "decode_steps": eng.metrics["decode_steps"] - before["decode_steps"],
+          "prefill_chunks": eng.metrics["prefill_chunks"] - before["prefill_chunks"],
+          "card_state_before": state})
+
+
 def phase_train(tt, kernels) -> tuple:
     """Llama-3-8B width, 4 layers, tokens [1, 2048]: one step's loss and
     grads through the kernels against the einsum path, then TRAIN_STEPS
@@ -475,6 +740,7 @@ def phase_train(tt, kernels) -> tuple:
             "flash_bwd_dkv": TRAIN_LAYERS}
     losses, step_s = [], []
     torch.cuda.reset_peak_memory_stats()
+    state_before = card_state()
     for _ in range(TRAIN_STEPS):
         for k in kernels:
             k.launches = 0
@@ -491,7 +757,8 @@ def phase_train(tt, kernels) -> tuple:
            "losses": losses, "step_ms": [t * 1e3 for t in step_s],
            "tokens_per_s": TRAIN_SEQ / step_s[-1], "launches_per_step": launches,
            "step": int(state.step),
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "card_state_before": state_before}
     emit(rec)
     check(all(map(math.isfinite, losses)), f"train loss not finite: {losses}")
     check(losses[-1] < losses[0], f"loss did not fall over {TRAIN_STEPS} steps: {losses}")
@@ -577,26 +844,46 @@ def main() -> int:
               "library": k.library_path().name, "ptxas": ptxas_summary(k.build_log)})
         print(k.build_log, file=sys.stderr, flush=True)
 
-    entries = [phase_flash(att, _kernels.FLASH_FWD), *phase_flash_bwd(att)]
-    params, cfg, tokens, fwd_launches = phase_forward(tt, _kernels.KERNELS)
-    prompt = phase_generate(tt, _kernels.KERNELS, params, cfg)
-    emit(device_profile("forward", lambda: tt.forward(params, tokens, cfg)))
-    emit(device_profile("generate", lambda: tt.generate(
-        params, prompt, cfg, max_new=GEN_NEW)))
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    entries = [timed("flash", phase_flash, att, _kernels.FLASH_FWD),
+               *timed("flash_bwd", phase_flash_bwd, att)]
+    params, cfg, tokens, fwd_launches = timed("forward", phase_forward, tt,
+                                              _kernels.KERNELS)
+    prompt = timed("generate", phase_generate, tt, _kernels.KERNELS, params, cfg)
+    timed("profile_forward", lambda: emit(device_profile(
+        "forward", lambda: tt.forward(params, tokens, cfg))))
+    timed("profile_generate", lambda: emit(device_profile(
+        "generate", lambda: tt.generate(params, prompt, cfg, max_new=GEN_NEW))))
+    stream, serve_launches = timed("serve", phase_serve, tt, _kernels.KERNELS,
+                                   params, cfg)
+    prefix, reqs = stream
+    timed("profile_serve", profile_serve, tt, params, cfg, prefix, reqs)
+    timed("serve_int8", phase_serve_int8, tt, params, cfg, stream)
+    timed("serve_int4", phase_serve_int4, tt, params, cfg)
     # The 32-layer parameters (32.1 GB) and the training state (~31 GB)
     # are never resident together.
     del params
     gc.collect()
     torch.cuda.empty_cache()
 
-    state, tcfg, ttokens, step_launches = phase_train(tt, _kernels.KERNELS)
-    emit(device_profile("train_step", lambda: tt.train_step(
-        state, ttokens, tcfg, lr=TRAIN_LR)))
-    phase_remat(_kernels.KERNELS, state, tcfg, ttokens)
+    state, tcfg, ttokens, step_launches = timed("train", phase_train, tt,
+                                                _kernels.KERNELS)
+    timed("profile_train_step", lambda: emit(device_profile(
+        "train_step", lambda: tt.train_step(state, ttokens, tcfg, lr=TRAIN_LR))))
+    timed("remat", phase_remat, _kernels.KERNELS, state, tcfg, ttokens)
     for e in entries:
         e["launches"] = step_launches[e["name"]]  # per train step, the main path
         e["launches_by_path"] = {"forward": fwd_launches[e["name"]],
-                                 "train_step": step_launches[e["name"]]}
+                                 "train_step": step_launches[e["name"]],
+                                 "serve": serve_launches[e["name"]]}
+    emit({"phase": "seconds", **seconds})
     emit({"kernels": entries})
     print(name, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

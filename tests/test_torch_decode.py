@@ -89,6 +89,11 @@ def test_cache_shapes_and_validation(params):
         td.generate(tp, prompt, TCFG, max_new=8, max_len=6)
     with pytest.raises(ValueError, match="max_new"):
         td.generate(tp, prompt, TCFG, max_new=0)
+    assert cache.k_scale is None and cache.v_scale is None
     int8 = tm.ModelConfig(**BASE, compute_dtype=torch.float32, kv_dtype="int8")
-    with pytest.raises(NotImplementedError, match="int8 KV cache"):
-        td.KVCache.create(int8, 1, 8, device="cpu")
+    c8 = td.KVCache.create(int8, 3, 16, device="cpu")
+    assert c8.k.dtype == c8.v.dtype == torch.int8
+    assert c8.k_scale.dtype == torch.float32
+    assert c8.k_scale.shape == c8.v_scale.shape == (2, 3, 16, 2, 1)
+    with pytest.raises(ValueError, match="unknown kv_dtype"):
+        td.KVCache.create(tm.ModelConfig(**BASE, kv_dtype="fp8"), 1, 8, device="cpu")

@@ -103,9 +103,12 @@ def test_unported_features_raise():
     tokens = torch.zeros((1, 16), dtype=torch.long)
     with pytest.raises(NotImplementedError, match="MoE"):
         tm.init_params(dataclasses.replace(tcfg, moe=object()), device="cpu")
-    quantized = dict(params, lm_head={"int8": params["lm_head"], "scale": None})
-    with pytest.raises(NotImplementedError, match="quantization slice"):
-        tm.forward(quantized, tokens, tcfg)
+    wq = params["layers"]["wq"]
+    lora = {"lora_base": wq, "lora_a": torch.zeros(wq.shape[:-1] + (2,)),
+            "lora_b": torch.zeros((wq.shape[0], 2, wq.shape[-1])),
+            "lora_scale": torch.ones(wq.shape[0])}
+    with pytest.raises(NotImplementedError, match="LoRA"):
+        tm.forward(dict(params, layers=dict(params["layers"], wq=lora)), tokens, tcfg)
     with pytest.raises(ValueError, match="unknown remat"):
         tm.forward(params, tokens, dataclasses.replace(tcfg, remat="bogus"))
 

@@ -4,7 +4,11 @@ JAX package (or from any source that can hand over numpy arrays).
 The tree is nested dicts of numpy arrays in the reference's layout
 (``init_params``: stacked ``[L, in, out]`` matmul weights); the result is
 the same tree of torch tensors, leaf for leaf, so both packages compute
-the same function on the same numbers.  :func:`train_state_from_numpy`
+the same function on the same numbers.  A quantized tree
+(``quantize_params``) comes across too: int8 leaves as they are, grouped
+int4 leaves (ml_dtypes ``int4``, which torch cannot take) through int8
+into the port's packed form (:func:`~.quant.pack_int4`).
+:func:`train_state_from_numpy`
 carries a training run across: the parameters with optax's AdamW moments
 and step count.
 """
@@ -15,6 +19,7 @@ import numpy as np
 import torch
 
 from tputopo_torch.model import resolve_device
+from tputopo_torch.quant import is_quantized, pack_int4
 from tputopo_torch.train import AdamState, TrainState
 
 
@@ -33,8 +38,13 @@ def _leaf(a, device: torch.device, dtype: torch.dtype | None) -> torch.Tensor:
 def params_from_numpy(tree, *, device=None, dtype: torch.dtype | None = None):
     """Nested dicts of numpy arrays -> the same dicts of tensors on
     ``device`` (``cuda`` by default, see :func:`~.model.resolve_device`);
-    floating leaves are cast to ``dtype`` when it is given."""
+    floating leaves are cast to ``dtype`` when it is given, except the
+    scales of quantized leaves, which stay float32 as in the reference."""
     dev = resolve_device(device)
+    if is_quantized(tree):
+        return {k: (pack_int4(torch.from_numpy(np.asarray(v).astype(np.int8))).to(dev)
+                    if k == "int4" else _leaf(v, dev, None))
+                for k, v in tree.items()}
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device=dev, dtype=dtype)
                 for k, v in tree.items()}

@@ -3,9 +3,11 @@
 (fixed batch, uniform prompts, run to completion).
 
 The cache is a pair of preallocated ``[L, B, S_max, KV, H]`` buffers in
-``compute_dtype``.  Where JAX threads a new cache value through
-``lax.scan``, this module writes the new K/V rows into the buffers in
-place (:func:`_store_kv`) and loops over layers and steps in Python.
+``compute_dtype``, or, with ``kv_dtype="int8"``, int8 buffers beside
+float32 scale buffers ``[L, B, S_max, KV, 1]``.  Where JAX threads a new
+cache value through ``lax.scan``, this module writes the new K/V rows into
+the buffers in place (:func:`_store_kv`, quantizing them for an int8
+cache) and loops over layers and steps in Python.
 
 The prompt fills the cache in one batched :func:`_block_step`, then each
 new token is one single-position step.  Attention over the cache is the
@@ -15,8 +17,7 @@ the reference does.
 
 Decoding policies: greedy (temperature 0, the default) and temperature
 sampling with optional top-k, drawn from a caller's ``torch.Generator``.
-The int8 KV cache (``kv_dtype="int8"``) and MoE layers come with later
-slices and raise here.
+MoE layers come with a later slice and raise here.
 """
 
 from __future__ import annotations
@@ -29,53 +30,74 @@ import torch.nn.functional as F
 from tputopo_torch.model import (ModelConfig, _apply_rope, _check_supported,
                                  _layer, _rmsnorm, _rope_tables, embed_tokens,
                                  lm_head, resolve_device)
-from tputopo_torch.quant import qdot
+from tputopo_torch.quant import fold_kv_scale, qdot, quantize_kv
 
 
 class KVCache(NamedTuple):
-    k: torch.Tensor  # [L, B, S_max, KV, H]  compute_dtype
+    k: torch.Tensor  # [L, B, S_max, KV, H]  compute_dtype, or int8
     v: torch.Tensor  # [L, B, S_max, KV, H]
+    # int8 cache only: per-(batch, position, kv-head) absmax scales,
+    # [L, B, S_max, KV, 1] f32.  None for a bf16 cache.
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
 
     @staticmethod
     def create(config: ModelConfig, batch: int, max_len: int, *,
                device=None) -> "KVCache":
         c = config
-        if c.kv_dtype == "int8":
-            raise NotImplementedError("the int8 KV cache is not ported yet: "
-                                      "it comes with the quantization slice "
-                                      "of tputopo_torch")
-        if c.kv_dtype != "bf16":
+        if c.kv_dtype not in ("bf16", "int8"):
             raise ValueError(f"unknown kv_dtype {c.kv_dtype!r}")
         dev = resolve_device(device)
         shape = (c.n_layers, batch, max_len, c.n_kv_heads, c.head_dim)
+        if c.kv_dtype == "int8":
+            sshape = shape[:-1] + (1,)
+            return KVCache(k=torch.zeros(shape, dtype=torch.int8, device=dev),
+                           v=torch.zeros(shape, dtype=torch.int8, device=dev),
+                           k_scale=torch.zeros(sshape, dtype=torch.float32, device=dev),
+                           v_scale=torch.zeros(sshape, dtype=torch.float32, device=dev))
         return KVCache(k=torch.zeros(shape, dtype=c.compute_dtype, device=dev),
                        v=torch.zeros(shape, dtype=c.compute_dtype, device=dev))
 
 
-def _store_kv(buf: torch.Tensor, kv: torch.Tensor, start: int) -> None:
+def _store_kv(buf: torch.Tensor, sbuf: torch.Tensor | None, kv: torch.Tensor,
+              start: int) -> None:
     """Write K or V rows [B, T, KV, H] into one layer's cache buffer
-    [B, S_max, KV, H] at position ``start``, in place."""
-    buf[:, start:start + kv.shape[1]] = kv
+    [B, S_max, KV, H] at position ``start``, in place, quantizing them when
+    the cache is int8 (``sbuf`` is its scale buffer, None for bf16)."""
+    end = start + kv.shape[1]
+    if sbuf is None:
+        buf[:, start:end] = kv
+        return
+    q, s = quantize_kv(kv)
+    buf[:, start:end] = q
+    sbuf[:, start:end] = s
 
 
 def _attend_cached(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
-                   start: int, group: int) -> torch.Tensor:
+                   start: int, group: int, ck_s: torch.Tensor | None = None,
+                   cv_s: torch.Tensor | None = None) -> torch.Tensor:
     """q [B, T, N, H] (query positions start..start+T-1) against a cache
     [B, S_max, KV, H]; cache positions beyond each query's own are masked.
     Returns [B, T, N, H].
 
     GQA stays grouped: q reshapes to [B, T, KV, group, H], so head n reads
     kv head n // group (the repeat order of the forward) and the cache is
-    read at its own KV width."""
+    read at its own KV width.  An int8 cache (scale buffers ``ck_s``/
+    ``cv_s``) folds its per-key-position scale into the logits and its
+    per-value-position scale into the probabilities, both exact."""
     B, T, N, H = q.shape
     KV = ck.shape[2]
     scale = 1.0 / (H ** 0.5)
     qg = q.float().reshape(B, T, KV, group, H) * scale
     s = torch.einsum("btkgh,bskh->bkgts", qg, ck.float())
+    if ck_s is not None:
+        s = s * fold_kv_scale(ck_s)
     k_pos = torch.arange(ck.shape[1], device=q.device)
     q_pos = start + torch.arange(T, device=q.device)
     s = s.masked_fill(k_pos[None, :] > q_pos[:, None], -1e30)
     p = torch.softmax(s, dim=-1)
+    if cv_s is not None:
+        p = p * fold_kv_scale(cv_s)
     out = torch.einsum("bkgts,bskh->btkgh", p, cv.float())
     return out.reshape(B, T, N, H).to(q.dtype)
 
@@ -86,6 +108,17 @@ def _block_step(params: dict, config: ModelConfig, tokens: torch.Tensor,
     """Feed ``tokens`` [B, T] at positions start..start+T-1 through the
     stack, writing their K/V into ``cache`` -> logits [B, T, V].  T equal
     to the prompt length is the prefill; T == 1 is one decode step."""
+    return lm_head(params, _block_hidden(params, config, tokens, start, cache,
+                                         cos, sin), config)
+
+
+def _block_hidden(params: dict, config: ModelConfig, tokens: torch.Tensor,
+                  start: int, cache: KVCache, cos: torch.Tensor,
+                  sin: torch.Tensor) -> torch.Tensor:
+    """:func:`_block_step` without the head: the last layer's output
+    [B, T, D], before the final norm.  Callers that need the logits of few
+    positions, or none (a prefill chunk), skip the head's work on the
+    rest, as XLA drops it from the reference's programs that discard it."""
     c = config
     B, T = tokens.shape
     group = c.n_heads // c.n_kv_heads
@@ -99,14 +132,16 @@ def _block_step(params: dict, config: ModelConfig, tokens: torch.Tensor,
         v = qdot(h, layer["wv"]).reshape(B, T, c.n_kv_heads, c.head_dim)
         q = _apply_rope(q, cos_t, sin_t)
         k = _apply_rope(k, cos_t, sin_t)
-        _store_kv(cache.k[i], k, start)
-        _store_kv(cache.v[i], v, start)
-        out = _attend_cached(q, cache.k[i], cache.v[i], start, group)
+        ks, vs = ((None, None) if cache.k_scale is None
+                  else (cache.k_scale[i], cache.v_scale[i]))
+        _store_kv(cache.k[i], ks, k, start)
+        _store_kv(cache.v[i], vs, v, start)
+        out = _attend_cached(q, cache.k[i], cache.v[i], start, group, ks, vs)
         x = x + qdot(out.reshape(B, T, c.n_heads * c.head_dim), layer["wo"])
         h2 = _rmsnorm(x, layer["mlp_norm"], c.norm_eps)
         gate = F.silu(qdot(h2, layer["w_gate"]))
         x = x + qdot(gate * qdot(h2, layer["w_up"]), layer["w_down"])
-    return lm_head(params, x, c)
+    return x
 
 
 def _select(logits: torch.Tensor, temperature: float, top_k: int | None,

@@ -18,9 +18,10 @@ the whole layer and recomputes it in the backward, ``"dots"`` keeps the
 matmul outputs and the flash forward's ``(o, lse)`` and recomputes the
 rest, ``"none"`` keeps everything.
 
-What this slice leaves out raises ``NotImplementedError``: MoE layers
-(``moe``), and the quantized or LoRA weight leaves (:mod:`.quant`).  The
-reference's context-parallel strategies (``sp_impl``) act only under an
+Weights may be raw tensors or the int8/int4 leaves of :mod:`.quant`.
+What the port leaves out so far raises ``NotImplementedError``: MoE
+layers (``moe``) and LoRA weight leaves.  The reference's
+context-parallel strategies (``sp_impl``) act only under an
 active multi-device mesh plan, which a single card never has; the port
 keeps the field and its eager check so configs carry over.  The
 reference's ``constrain`` sharding annotations are the identity on one
@@ -42,7 +43,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from tputopo_torch.attention import flash_attention
-from tputopo_torch.quant import deq_rows, qdot, raw_weight
+from tputopo_torch.quant import deq_rows, is_quantized, qdot
 
 
 def resolve_device(device=None) -> torch.device:
@@ -254,7 +255,12 @@ def transformer_block(x: torch.Tensor, layer: dict, config: ModelConfig,
 
 
 def _layer(layers: dict, i: int) -> dict:
-    return {name: w[i] for name, w in layers.items()}
+    """Layer ``i`` of the stacked tree: every tensor indexed on its leading
+    axis, including each array inside a quantized leaf."""
+    def take(w):
+        return {k: take(a) for k, a in w.items()} if isinstance(w, dict) else w[i]
+
+    return {name: take(w) for name, w in layers.items()}
 
 
 # What remat="dots" keeps: every matmul output (the reference's
@@ -313,9 +319,12 @@ def lm_head(params: dict, x: torch.Tensor, config: ModelConfig) -> torch.Tensor:
     """Final norm and head -> f32 logits.  The head is rounded to
     ``compute_dtype`` as in the reference, and the product of the two
     compute-dtype operands accumulates in f32 without rounding the logits:
-    both operands are widened to f32, where bf16 products are exact."""
+    both operands are widened to f32, where bf16 products are exact.  A
+    quantized head contracts the f32 activations (:func:`.quant.qdot`)."""
     x = _rmsnorm(x, params["final_norm"], config.norm_eps)
-    w = raw_weight(params["lm_head"])
+    w = params["lm_head"]
+    if is_quantized(w):
+        return qdot(x.float(), w)
     return x.float() @ w.to(config.compute_dtype).float()
 
 

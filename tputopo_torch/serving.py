@@ -1,0 +1,654 @@
+"""Continuous-batching serving — the counterpart of
+``tputopo/workloads/serving.py``: slot-based decode state, ragged prompts,
+EOS early exit, mid-stream admission, bucketed and chunked prefill,
+prefix caching and token streaming.
+
+- A :class:`DecodeState` holds SLOTS, not requests: a [slots, max_len]
+  token buffer, one KV cache and per-slot ``length`` / ``prompt_len`` /
+  ``budget`` / ``seq_id`` / ``done`` vectors, all on the device.  Where the
+  reference threads a new state value through each jitted program, the
+  functions here write the state in place: admission prefills one slot
+  through a view of its cache slice (``cache.k[:, slot:slot + 1]``), so no
+  merge copy follows, and a decode step rewrites the per-slot vectors with
+  masked updates.
+- Admission pads a prompt to the smallest ``prompt_pad`` bucket covering
+  it and runs the block prefill (:func:`.decode._block_step`) on the slot.
+  Pad positions are harmless: causal masking keeps real positions from
+  attending them, the first token reads the logits at ``prompt_len - 1``,
+  and per-slot length masks keep them unreachable until decode writes
+  overwrite them.
+- The decode step is RAGGED: each slot sits at its own position, so RoPE
+  rows are gathered per slot, the cache write is one indexed write over
+  [slots, T] positions, and the attention mask compares with each slot's
+  own position.  Idle slots (done, empty or mid-prefill) ride along
+  masked, and their junk K/V goes to position max_len-1, which no query
+  reaches before the step whose real write overwrites it.  The redirect is
+  load-bearing for chunked prefill: a junk write at position 0 would
+  clobber the first chunk of a slot that is still prefilling.
+- Chunked prefill (``prefill_chunk=N``) runs a wide bucket one N-token
+  chunk per engine tick, the other slots decoding between the chunks; the
+  chunk holding the prompt's last token activates the slot, later chunks
+  are skipped.
+
+The host-side :class:`ServingEngine` keeps the queue and the slot
+bookkeeping.  It reads the device state back where the reference does,
+once per tick (free slots, finished slots, any slot active, streaming);
+nothing inside :func:`decode_step` or :func:`decode_steps` waits for the
+device.  Sampling draws from a caller's ``torch.Generator`` on the
+parameters' device, as :func:`.decode.generate` does: the reference's
+``fold_in(key, step)`` stream cannot be reproduced draw for draw, so the
+state keeps no step counter.  The reference's sharding constraints are
+the identity on one card and are dropped; MoE configs raise, as in the
+rest of the port.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from tputopo_torch.decode import KVCache, _block_hidden, _select
+from tputopo_torch.model import (ModelConfig, _check_supported, _layer,
+                                 _rmsnorm, _rope_tables, lm_head,
+                                 resolve_device)
+from tputopo_torch.quant import deq_rows, fold_kv_scale, qdot, quantize_kv
+
+
+class DecodeState(NamedTuple):
+    """Slot-based serving state — the whole engine's device residency."""
+
+    cache: KVCache          # k/v [L, slots, max_len, KV, H]
+    tokens: torch.Tensor    # [slots, max_len] int64 (prompt + generated)
+    length: torch.Tensor    # [slots] int64: tokens held; next write position
+    prompt_len: torch.Tensor  # [slots] int64
+    budget: torch.Tensor    # [slots] int64: max tokens to generate
+    seq_id: torch.Tensor    # [slots] int64: request id, -1 == empty
+    done: torch.Tensor      # [slots] bool: finished, awaiting harvest
+
+    @property
+    def active(self) -> torch.Tensor:
+        return (self.seq_id >= 0) & ~self.done
+
+
+def init_state(config: ModelConfig, slots: int, max_len: int, *,
+               device=None) -> DecodeState:
+    """An empty state on ``device`` (``cuda`` unless the caller asks for
+    the CPU)."""
+    _check_supported(config)
+    dev = resolve_device(device)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.long, device=dev)
+
+    return DecodeState(
+        cache=KVCache.create(config, slots, max_len, device=dev),
+        tokens=zeros(slots, max_len), length=zeros(slots),
+        prompt_len=zeros(slots), budget=zeros(slots),
+        seq_id=torch.full((slots,), -1, dtype=torch.long, device=dev),
+        done=torch.zeros(slots, dtype=torch.bool, device=dev))
+
+
+# ---- admission: ragged prefill into one slot --------------------------------
+
+def _slot_cache(cache: KVCache, slot: int) -> KVCache:
+    """One slot's cache slice as a batch-1 cache: views, so the block
+    prefill writes the slot in place.  Every buffer, the int8 scales
+    included, shares the [L, slots, ...] layout."""
+    return KVCache(*(None if b is None else b[:, slot:slot + 1] for b in cache))
+
+
+def _finish_admit(state: DecodeState, slot: int, last_logits: torch.Tensor,
+                  prompt_row: torch.Tensor, prompt_len: int, seq_id: int,
+                  budget: int, eos_id: int, temperature: float,
+                  top_k: int | None, generator: torch.Generator | None) -> None:
+    """Shared tail of whole-bucket and chunked admission: select the first
+    token from the last prompt position's logits [V], install the token
+    row (prompt, zeros past it, then the first token) and activate the
+    slot.  ``prompt_row`` may be bucket-length or max_len."""
+    max_len = state.tokens.shape[1]
+    first = _select(last_logits[None, :], temperature, top_k, generator)[0]
+    n = min(prompt_len, max_len, prompt_row.shape[0])
+    row = state.tokens[slot]
+    row.zero_()
+    row[:n] = prompt_row[:n]
+    if prompt_len < max_len:  # the reference's mode="drop" write
+        row[prompt_len] = first
+    length = prompt_len + 1
+    state.length[slot] = length
+    state.prompt_len[slot] = prompt_len
+    state.budget[slot] = budget
+    state.seq_id[slot] = seq_id
+    # Done at once when the first token is EOS, the budget was one token,
+    # or the buffer is full.
+    state.done[slot] = (first == eos_id) | (budget <= 1) | (length >= max_len)
+
+
+def _last_logits(params: dict, config: ModelConfig, x: torch.Tensor,
+                 i: int) -> torch.Tensor:
+    """The logits [V] of position ``i`` of a batch-1 hidden state."""
+    return lm_head(params, x[0, i:i + 1], config)[0]
+
+
+@torch.no_grad()
+def admit(params: dict, state: DecodeState, config: ModelConfig, slot: int,
+          prompt: torch.Tensor, prompt_len: int, seq_id: int, budget: int,
+          eos_id: int, *, temperature: float = 0.0, top_k: int | None = None,
+          generator: torch.Generator | None = None) -> None:
+    """Prefill ``prompt`` (padded to its bucket length) into ``slot`` and
+    emit its first token, in place.  ``eos_id`` < 0 disables EOS."""
+    cos, sin = _rope_tables(config, state.tokens.shape[1], prompt.device)
+    x = _block_hidden(params, config, prompt[None, :], 0,
+                      _slot_cache(state.cache, slot), cos, sin)
+    _finish_admit(state, slot, _last_logits(params, config, x, prompt_len - 1),
+                  prompt, prompt_len, seq_id, budget, eos_id, temperature,
+                  top_k, generator)
+
+
+@torch.no_grad()
+def prefill_chunk(params: dict, state: DecodeState, config: ModelConfig,
+                  slot: int, chunk: torch.Tensor, start: int) -> None:
+    """One NON-final chunk of a chunked prefill: ``chunk`` at positions
+    start.. fills only the slot's cache, and the slot stays inactive, so
+    other slots decode between chunks.  Causally exact: the chunk attends
+    itself plus the chunks already in the cache."""
+    cos, sin = _rope_tables(config, state.tokens.shape[1], chunk.device)
+    _block_hidden(params, config, chunk[None, :], start,
+                  _slot_cache(state.cache, slot), cos, sin)
+
+
+@torch.no_grad()
+def admit_final_chunk(params: dict, state: DecodeState, config: ModelConfig,
+                      slot: int, prompt: torch.Tensor, chunk: torch.Tensor,
+                      start: int, prompt_len: int, seq_id: int, budget: int,
+                      eos_id: int, *, temperature: float = 0.0,
+                      top_k: int | None = None,
+                      generator: torch.Generator | None = None) -> None:
+    """The FINAL chunk of a chunked prefill: position prompt_len-1 lies in
+    ``chunk``, so this fills its cache span and activates the slot (first
+    token, and the token row from the full padded ``prompt``)."""
+    cos, sin = _rope_tables(config, state.tokens.shape[1], chunk.device)
+    x = _block_hidden(params, config, chunk[None, :], start,
+                      _slot_cache(state.cache, slot), cos, sin)
+    _finish_admit(state, slot,
+                  _last_logits(params, config, x, prompt_len - 1 - start),
+                  prompt, prompt_len, seq_id, budget, eos_id, temperature,
+                  top_k, generator)
+
+
+# ---- prefix caching: compute a shared prompt prefix's KV once ---------------
+
+@torch.no_grad()
+def build_prefix_cache(params: dict, config: ModelConfig,
+                       tokens: torch.Tensor) -> KVCache:
+    """KV for a shared prefix [P], computed once into a batch-1, length-P
+    cache on the tokens' device.  RoPE is absolute, so these rows equal
+    computing the prefix in place at positions 0..P-1 of any slot."""
+    P = tokens.shape[0]
+    cos, sin = _rope_tables(config, P, tokens.device)
+    cache = KVCache.create(config, 1, P, device=tokens.device)
+    _block_hidden(params, config, tokens[None, :], 0, cache, cos, sin)
+    return cache
+
+
+@torch.no_grad()
+def copy_prefix(state: DecodeState, prefix: KVCache, slot: int) -> None:
+    """Install a prebuilt prefix KV into ``slot``'s positions 0..P-1 — a
+    device copy.  The slot stays inactive; the suffix prefill activates it."""
+    for whole, b in zip(state.cache, prefix):
+        if b is not None:
+            whole[:, slot:slot + 1, :b.shape[2]] = b
+
+
+# ---- the ragged decode step -------------------------------------------------
+
+def _apply_rope_at(x: torch.Tensor, cos_b: torch.Tensor,
+                   sin_b: torch.Tensor) -> torch.Tensor:
+    """RoPE for [B, T, N, H] with PER-(slot, offset) positions: cos_b/sin_b
+    are [B, T, H/2] rows gathered at each slot's own positions."""
+    dt = x.dtype
+    x1, x2 = x.float().chunk(2, dim=-1)
+    cb = cos_b[:, :, None, :]
+    sb = sin_b[:, :, None, :]
+    return torch.cat([x1 * cb - x2 * sb, x1 * sb + x2 * cb], dim=-1).to(dt)
+
+
+def _write_kv_at(cache_l: torch.Tensor, kv: torch.Tensor,
+                 pos: torch.Tensor) -> None:
+    """Per-slot T-wide cache write, in place and as one indexed write:
+    cache_l [B, S, KV, H] <- kv [B, T, KV, H] at positions
+    pos[b]..pos[b]+T-1.  Like the reference's ``dynamic_update_slice``, a
+    negative start counts once from the end, and a start is then clamped
+    into [0, S - T], so a window that would run past the buffer's end
+    overwrites EARLIER rows: callers keep pos[b] + T <= S for windows that
+    matter (see :func:`ragged_block`)."""
+    B, T = kv.shape[:2]
+    S = cache_l.shape[1]
+    start = torch.where(pos < 0, pos + S, pos).clamp(0, S - T)
+    idx = start[:, None] + torch.arange(T, device=pos.device)
+    cache_l[torch.arange(B, device=pos.device)[:, None], idx] = kv
+
+
+def _attend_ragged(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                   pos: torch.Tensor, group: int,
+                   ck_s: torch.Tensor | None = None,
+                   cv_s: torch.Tensor | None = None) -> torch.Tensor:
+    """T queries per slot, each slot at its OWN base position: q
+    [B, T, N, H] against the cache [B, S, KV, H]; slot b's query t sits at
+    pos[b] + t and attends cache positions <= it.  The grouped-GQA einsums
+    of :func:`.decode._attend_cached`, int8 scale folds included."""
+    B, T, N, H = q.shape
+    KV = ck.shape[2]
+    scale = 1.0 / (H ** 0.5)
+    qg = q.float().reshape(B, T, KV, group, H) * scale
+    s = torch.einsum("btkgh,bskh->bkgts", qg, ck.float())
+    if ck_s is not None:
+        s = s * fold_kv_scale(ck_s)
+    k_pos = torch.arange(ck.shape[1], device=q.device)
+    q_pos = pos[:, None] + torch.arange(T, device=q.device)  # [B, T]
+    s = torch.where(k_pos <= q_pos[:, None, None, :, None], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    if cv_s is not None:
+        p = p * fold_kv_scale(cv_s)
+    out = torch.einsum("bkgts,bskh->btkgh", p, cv.float())
+    return out.reshape(B, T, N, H).to(q.dtype)
+
+
+@torch.no_grad()
+def ragged_block(params: dict, config: ModelConfig, tokens: torch.Tensor,
+                 starts: torch.Tensor, cache: KVCache) -> torch.Tensor:
+    """T tokens per slot, each slot at its OWN base position: tokens
+    [B, T] run positions starts[b]..starts[b]+T-1 through the stack,
+    writing their K/V into ``cache`` in place -> logits [B, T, V].  T=1 is
+    the continuous-batching decode step; T=gamma+1 is speculative
+    serving's verify block.  Callers own the junk-window discipline: pass
+    ``starts`` already redirected for inactive slots.
+
+    CACHE-WRITE CONTRACT: every slot must satisfy ``starts[b] + T <= S``
+    (S = cache buffer length); past it the write's start is clamped to
+    ``S - T`` and overwrites earlier rows (:func:`_write_kv_at`).  Size the
+    buffer with a margin of at least ``T - 1`` beyond the longest position
+    a slot may reach.
+
+    Token ids are not range-checked here (that would read them back to the
+    host every step): the engine's ids passed the check of the prefill
+    that installed them, or are the model's own picks."""
+    c = config
+    _check_supported(c)
+    B, T = tokens.shape
+    group = c.n_heads // c.n_kv_heads
+    max_len = cache.k.shape[2]
+    cos, sin = _rope_tables(c, max_len, tokens.device)
+    pos_bt = (starts[:, None] + torch.arange(T, device=tokens.device)).clamp(
+        0, max_len - 1)
+    cos_bt, sin_bt = cos[pos_bt], sin[pos_bt]  # [B, T, H/2]
+
+    x = deq_rows(params["embed"], tokens, c.compute_dtype)  # [B, T, D]
+    for i in range(c.n_layers):
+        layer = _layer(params["layers"], i)
+        h = _rmsnorm(x, layer["attn_norm"], c.norm_eps)
+        q = qdot(h, layer["wq"]).reshape(B, T, c.n_heads, c.head_dim)
+        k = qdot(h, layer["wk"]).reshape(B, T, c.n_kv_heads, c.head_dim)
+        v = qdot(h, layer["wv"]).reshape(B, T, c.n_kv_heads, c.head_dim)
+        q = _apply_rope_at(q, cos_bt, sin_bt)
+        k = _apply_rope_at(k, cos_bt, sin_bt)
+        cks = cvs = None
+        if cache.k_scale is not None:
+            cks, cvs = cache.k_scale[i], cache.v_scale[i]
+            k, ks = quantize_kv(k)
+            v, vs = quantize_kv(v)
+            _write_kv_at(cks, ks, starts)
+            _write_kv_at(cvs, vs, starts)
+        _write_kv_at(cache.k[i], k, starts)
+        _write_kv_at(cache.v[i], v, starts)
+        out = _attend_ragged(q, cache.k[i], cache.v[i], starts, group, cks, cvs)
+        x = x + qdot(out.reshape(B, T, c.n_heads * c.head_dim), layer["wo"])
+        h2 = _rmsnorm(x, layer["mlp_norm"], c.norm_eps)
+        gate = F.silu(qdot(h2, layer["w_gate"]))
+        x = x + qdot(gate * qdot(h2, layer["w_up"]), layer["w_down"])
+    return lm_head(params, x, c)
+
+
+@torch.no_grad()
+def decode_step(params: dict, state: DecodeState, config: ModelConfig,
+                eos_id: int, *, temperature: float = 0.0,
+                top_k: int | None = None,
+                generator: torch.Generator | None = None) -> None:
+    """One token for every active slot, each at its own position, in
+    place.  Idle slots compute masked no-ops.  No host readback."""
+    B, max_len = state.tokens.shape
+    active = state.active
+    # The last held token (from admission or the previous step) has not
+    # been fed yet: feed it at position length-1.  Inactive slots write
+    # their junk K/V at max_len-1, NOT 0: a slot mid-way through a chunked
+    # prefill is inactive, and a junk write at 0 would clobber its first
+    # chunk.  max_len-1 becomes reachable (k_pos <= length-1) only on the
+    # step whose real write overwrites it.
+    pos = torch.where(active, (state.length - 1).clamp(min=0), max_len - 1)
+    tok = state.tokens.gather(1, pos[:, None])  # [B, 1]
+    logits = ragged_block(params, config, tok, pos, state.cache)[:, 0]
+    nxt = _select(logits, temperature, top_k, generator)
+
+    # Write-gate by activity; the clamp only keeps idle lanes in bounds (a
+    # full slot was already marked done).
+    rows = torch.arange(B, device=pos.device)
+    widx = state.length.clamp(max=max_len - 1)
+    state.tokens[rows, widx] = torch.where(active, nxt, state.tokens[rows, widx])
+    new_length = torch.where(active, state.length + 1, state.length)
+    finished = active & ((nxt == eos_id)
+                         | (new_length - state.prompt_len >= state.budget)
+                         | (new_length >= max_len))
+    state.length.copy_(new_length)
+    state.done.logical_or_(finished)
+
+
+def decode_steps(params: dict, state: DecodeState, config: ModelConfig,
+                 eos_id: int, n: int, *, temperature: float = 0.0,
+                 top_k: int | None = None,
+                 generator: torch.Generator | None = None) -> None:
+    """``n`` decode steps back to back with no host readback between them:
+    slots that finish mid-chain idle along masked, and admission happens
+    between chains."""
+    for _ in range(n):
+        decode_step(params, state, config, eos_id, temperature=temperature,
+                    top_k=top_k, generator=generator)
+
+
+# ---- host-side engine (pure control plane) ----------------------------------
+
+class ServingEngine:
+    """Continuous-batching orchestrator: a request queue over the slotted
+    decode state, on the device that holds ``params``.
+
+    ``prompt_pad`` is the static prefill bucket — an int, or a tuple of
+    bucket lengths: each admission pads to the SMALLEST bucket covering
+    its prompt.  Prompts longer than the largest bucket are rejected.
+    ``eos_id`` < 0 disables EOS (budget-only termination).  Sampling
+    (``temperature`` > 0) draws from ``generator``.
+
+    ``prefill_chunk`` (optional) bounds head-of-line blocking: an
+    admission whose bucket is wider than the chunk prefills one chunk per
+    tick, interleaved with the other slots' decode steps.  Buckets must be
+    chunk multiples.  ``steps_per_tick`` decode steps run per tick with no
+    readback between them.  ``buffer_margin`` adds cache and token rows
+    past ``max_len`` (which still bounds submissions) for subclasses whose
+    device programs write fixed-width windows at the frontier.
+
+    Streaming: ``on_tokens(rid, [token_ids])`` fires after each tick with
+    the GENERATED tokens newly committed for that request; it costs one
+    extra readback per tick, and none when no callback is set.
+    """
+
+    def __init__(self, params: dict, config: ModelConfig, *, slots: int,
+                 max_len: int, prompt_pad: int | tuple[int, ...],
+                 eos_id: int = -1,
+                 temperature: float = 0.0, top_k: int | None = None,
+                 generator: torch.Generator | None = None,
+                 steps_per_tick: int = 1,
+                 prefill_chunk: int | None = None,
+                 buffer_margin: int = 0,
+                 on_tokens: Callable[[int, list[int]], None] | None = None) -> None:
+        buckets = ((prompt_pad,) if isinstance(prompt_pad, int)
+                   else tuple(sorted(set(prompt_pad))))
+        if not buckets or any(b < 1 for b in buckets):
+            raise ValueError(f"bad prompt_pad buckets {prompt_pad!r}")
+        if buckets[-1] + 1 > max_len:
+            raise ValueError(
+                f"prompt_pad {buckets[-1]} + 1 exceeds max_len {max_len}")
+        if temperature > 0.0 and generator is None:
+            raise ValueError("sampling (temperature > 0) needs a torch.Generator")
+        if steps_per_tick < 1:
+            raise ValueError("steps_per_tick must be >= 1")
+        if prefill_chunk is not None and (
+                prefill_chunk < 1
+                or any(b % prefill_chunk for b in buckets)):
+            raise ValueError(
+                f"prefill_chunk {prefill_chunk} must be >= 1 and divide "
+                f"every bucket {buckets}")
+        self.params = params
+        self.config = config
+        self.device = params["final_norm"].device
+        self.slots = slots
+        self.max_len = max_len
+        self.buckets = buckets
+        self.prompt_pad = buckets[-1]
+        self.eos_id = eos_id
+        self.temperature = temperature
+        self.top_k = top_k
+        self.generator = generator
+        self.steps_per_tick = steps_per_tick
+        self.prefill_chunk = prefill_chunk
+        self.on_tokens = on_tokens
+        # rid -> emission cursor, seeded at submit() with the prompt length;
+        # empty when no callback is set.
+        self._streamed: dict[int, int] = {}
+        self.state = init_state(config, slots, max_len + buffer_margin,
+                                device=self.device)
+        # (id, prompt-or-suffix, max_new, prefix id or None)
+        self._queue: list[tuple[int, list[int], int, int | None]] = []
+        # slot -> (rid, max_len row, prompt_len, max_new, next start, chunk)
+        self._prefilling: dict[
+            int, tuple[int, np.ndarray, int, int, int, int]] = {}
+        # prefix id -> (tokens, KVCache [L, 1, P, KV, H] on the device)
+        self._prefixes: dict[int, tuple[list[int], KVCache]] = {}
+        self._next_id = 0
+        self._results: dict[int, list[int]] = {}
+        self.metrics = {"admitted": 0, "decode_steps": 0, "finished": 0,
+                        "prefill_chunks": 0, "prefix_admits": 0}
+
+    def _dev(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, dtype=np.int64), device=self.device)
+
+    # -- request surface --
+
+    def register_prefix(self, tokens: list[int] | np.ndarray) -> int:
+        """Compute a shared prompt prefix's KV once; requests submitted
+        with ``prefix=pid`` copy it and prefill only their suffix."""
+        tokens = [int(t) for t in tokens]
+        if not tokens:
+            raise ValueError("prefix must be non-empty")
+        if len(tokens) + self.buckets[0] > self.max_len:
+            raise ValueError(
+                f"prefix {len(tokens)} + smallest bucket {self.buckets[0]} "
+                f"exceeds max_len {self.max_len}")
+        cache = build_prefix_cache(self.params, self.config, self._dev(tokens))
+        pid = self._next_id
+        self._next_id += 1
+        self._prefixes[pid] = (tokens, cache)
+        return pid
+
+    def unregister_prefix(self, pid: int) -> None:
+        """Release a prefix's device KV.  Mid-prefill slots already copied
+        it; only queued requests still reference the pid, so eviction is
+        refused while any do."""
+        if pid not in self._prefixes:
+            raise ValueError(f"unknown prefix id {pid}")
+        if any(q[3] == pid for q in self._queue):
+            raise ValueError(
+                f"prefix {pid} still referenced by queued requests")
+        del self._prefixes[pid]
+
+    def submit(self, prompt: list[int] | np.ndarray, max_new: int,
+               prefix: int | None = None) -> int:
+        """Queue a request.  With ``prefix``, ``prompt`` is the SUFFIX after
+        the registered prefix; the result row is the full prefix + suffix +
+        generated sequence."""
+        prompt = [int(t) for t in prompt]
+        if not 0 < len(prompt) <= self.prompt_pad:
+            raise ValueError(
+                f"prompt length {len(prompt)} outside (0, {self.prompt_pad}]")
+        if max_new < 1:
+            raise ValueError("max_new must be >= 1")
+        plen = len(prompt)
+        if prefix is not None:
+            if prefix not in self._prefixes:
+                raise ValueError(f"unknown prefix id {prefix}")
+            ptoks = self._prefixes[prefix][0]
+            pad_s = next(b for b in self.buckets if b >= len(prompt))
+            if len(ptoks) + pad_s > self.max_len:
+                raise ValueError(
+                    f"prefix {len(ptoks)} + suffix bucket {pad_s} exceeds "
+                    f"max_len {self.max_len}")
+            plen += len(ptoks)
+        if plen + max_new > self.max_len:
+            raise ValueError(
+                f"prompt {plen} + max_new {max_new} exceeds "
+                f"max_len {self.max_len}")
+        rid = self._next_id
+        self._next_id += 1
+        if self.on_tokens is not None:
+            self._streamed[rid] = plen
+        self._queue.append((rid, prompt, max_new, prefix))
+        return rid
+
+    # -- engine internals --
+
+    def _free_slots(self) -> list[int]:
+        seq = self.state.seq_id.tolist()
+        return [i for i in range(self.slots)
+                if seq[i] < 0 and i not in self._prefilling]
+
+    def _advance_prefill(self, slot: int) -> None:
+        """One chunk of ``slot``'s prefill.  The chunk holding the prompt's
+        last token finishes through :func:`admit_final_chunk`; chunks past
+        it never run."""
+        rid, row, plen, max_new, start, ch = self._prefilling[slot]
+        if start + ch < plen:  # a later chunk holds position plen-1
+            prefill_chunk(self.params, self.state, self.config, slot,
+                          self._dev(row[start:start + ch]), start)
+            self._prefilling[slot] = (rid, row, plen, max_new, start + ch, ch)
+        else:
+            admit_final_chunk(
+                self.params, self.state, self.config, slot, self._dev(row),
+                self._dev(row[start:start + ch]), start, plen, rid, max_new,
+                self.eos_id, temperature=self.temperature, top_k=self.top_k,
+                generator=self.generator)
+            del self._prefilling[slot]
+            self.metrics["admitted"] += 1
+            self._post_admit(slot, row, plen)
+        self.metrics["prefill_chunks"] += 1
+
+    def _advance_prefills(self) -> None:
+        for slot in list(self._prefilling):
+            self._advance_prefill(slot)
+
+    def _admit_pending(self) -> None:
+        for slot in self._free_slots():
+            if not self._queue:
+                break
+            rid, prompt, max_new, pfx = self._queue.pop(0)
+            pad = next(b for b in self.buckets if b >= len(prompt))
+            if pfx is not None:
+                # Copy the prebuilt prefix KV into the slot, then prefill
+                # only the suffix at start=P through the chunk machinery
+                # (an unchunked engine takes the suffix bucket as one chunk).
+                ptoks, pcache = self._prefixes[pfx]
+                P = len(ptoks)
+                row = np.zeros((self.max_len,), np.int64)
+                row[:P] = ptoks
+                row[P:P + len(prompt)] = prompt
+                copy_prefix(self.state, pcache, slot)
+                self.metrics["prefix_admits"] += 1
+                ch = (self.prefill_chunk
+                      if self.prefill_chunk and pad > self.prefill_chunk
+                      else pad)
+                self._prefilling[slot] = (rid, row, P + len(prompt), max_new,
+                                          P, ch)
+                self._advance_prefill(slot)
+                continue
+            if self.prefill_chunk and pad > self.prefill_chunk:
+                # The BUCKET (not the prompt) decides: a short prompt in a
+                # wide bucket would otherwise pay a whole-bucket prefill.
+                # Its first chunk runs now; later ones one per tick.
+                row = np.zeros((self.max_len,), np.int64)
+                row[:len(prompt)] = prompt
+                self._prefilling[slot] = (rid, row, len(prompt), max_new, 0,
+                                          self.prefill_chunk)
+                self._advance_prefill(slot)
+                continue
+            padded = np.zeros((pad,), np.int64)
+            padded[:len(prompt)] = prompt
+            admit(self.params, self.state, self.config, slot,
+                  self._dev(padded), len(prompt), rid, max_new, self.eos_id,
+                  temperature=self.temperature, top_k=self.top_k,
+                  generator=self.generator)
+            self.metrics["admitted"] += 1
+            self._post_admit(slot, padded, len(prompt))
+
+    def _post_admit(self, slot: int, padded: np.ndarray,
+                    prompt_len: int) -> None:
+        """Hook for subclasses that keep auxiliary per-slot device state
+        (the speculative engine prefills its draft cache here)."""
+
+    def _harvest(self) -> None:
+        done = self.state.done.cpu().numpy()
+        if not done.any():
+            return
+        seq = self.state.seq_id.cpu().numpy()
+        length = self.state.length.cpu().numpy()
+        tokens = self.state.tokens.cpu().numpy()
+        clear = []
+        for slot in np.nonzero(done)[0]:
+            rid = int(seq[slot])
+            if rid >= 0:
+                self._results[rid] = tokens[slot, :int(length[slot])].tolist()
+                self.metrics["finished"] += 1
+                # The final emission happened at the end of the tick that
+                # finished this slot, before this harvest.
+                self._streamed.pop(rid, None)
+            clear.append(int(slot))
+        idx = torch.tensor(clear, device=self.device)
+        self.state.seq_id[idx] = -1
+        self.state.done[idx] = False
+        self.state.length[idx] = 0
+        self.state.budget[idx] = 0
+
+    def step(self) -> None:
+        """One engine tick: harvest finished -> advance chunked prefills by
+        one chunk each -> admit from the queue -> one decode tick (if
+        anything is active) -> stream."""
+        self._harvest()
+        if self._prefilling:
+            self._advance_prefills()
+        self._admit_pending()
+        if bool(self.state.active.any()):
+            self._decode_tick()
+        if self.on_tokens is not None:
+            self._emit_stream()
+
+    def _emit_stream(self) -> None:
+        """Fire ``on_tokens`` with each live request's newly committed
+        generated tokens.  Runs before harvest clears a finished slot, so
+        the final tokens, EOS included, stream before run() returns them."""
+        seq = self.state.seq_id.tolist()
+        length = self.state.length.tolist()
+        tokens = None
+        for slot in range(self.slots):
+            sent = self._streamed.get(seq[slot]) if seq[slot] >= 0 else None
+            if sent is None:
+                continue
+            cur = length[slot]
+            if cur > sent:
+                if tokens is None:  # one readback, only when needed
+                    tokens = self.state.tokens.cpu().numpy()
+                self.on_tokens(seq[slot], tokens[slot, sent:cur].tolist())
+                self._streamed[seq[slot]] = cur
+
+    def _decode_tick(self) -> None:
+        decode_steps(self.params, self.state, self.config, self.eos_id,
+                     self.steps_per_tick, temperature=self.temperature,
+                     top_k=self.top_k, generator=self.generator)
+        self.metrics["decode_steps"] += self.steps_per_tick
+
+    def run(self, max_steps: int = 100_000) -> dict[int, list[int]]:
+        """Drive until queue and slots drain; returns {request id: tokens
+        (prompt + generated, EOS included when emitted)}."""
+        for _ in range(max_steps):
+            self.step()
+            if not self._queue and not self._prefilling and not bool(
+                    (self.state.seq_id >= 0).any()):
+                break
+        self._harvest()
+        return dict(self._results)
