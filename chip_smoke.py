@@ -32,13 +32,29 @@ Phases, each printed as one JSON line on stdout:
    grads through the kernels against the einsum path, then three AdamW
    steps on one batch, each launching the forward kernel 2·L times and
    each backward kernel L times, with the loss falling; then one
-   loss-and-grads under each remat policy.
+   loss-and-grads under each remat policy;
+8. the multi-GPU slice on the one card: a world-1 NCCL group from the
+   gang env (``dist_world1``: the all-reduce measurement, which on one
+   card measures no link, the link model's prediction for one GPU, and
+   a calibration from a measured HBM stream); the sharded train step on
+   ``{dp: 1, tp: 1}`` over that group at the training shape, equal to
+   ``train_step`` bit for bit (``sharded_train_world1``); two rank
+   processes on the card over gloo, ``{dp: 1, tp: 2}`` at 4 layers and
+   ``{dp: 2, tp: 1}`` at 1 layer, each held against the single-process
+   step (``tp2_gloo_cuda``); and, at the same time, the CLI's
+   ``allreduce`` and ``train`` subcommands as subprocesses, the second
+   resumed from its checkpoint (``cli``).
+
+Between the kernel phases and the forward, ``repairs``: a forward with
+head dim 256 under ``attn_impl="auto"`` (the einsum path, as the kernels
+take H <= 128) and the kernels on view operands.
 
 Then the seconds of each phase, one ``kernels`` line, the card's
 ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
 before that line.  Without a GPU, or without the repository beside it,
-the script fails.
+the script fails.  ``chip_smoke.py --tp2-rank <rank> <dir>`` is the rank
+process of ``tp2_gloo_cuda``, started by the script itself.
 """
 
 from __future__ import annotations
@@ -48,10 +64,13 @@ import gc
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -179,6 +198,20 @@ TRAIN_LAYERS, TRAIN_SEQ, TRAIN_LR, TRAIN_STEPS = 4, 2048, 3e-4, 3
 # model and the longer sequence.
 TRAIN_LOSS_TOL = 1e-2
 TRAIN_GRAD_NORM_REL = 0.1
+
+# The multi-GPU slice.  The world-1 all-reduce payload is the reference
+# CLI's default (16 MB); the HBM stream copies 2 GiB (read once, written
+# once), far above the 50 MB L2.
+ALLREDUCE_MB, STREAM_BYTES = 16.0, 2 << 30
+# Two rank processes on the one card over gloo (NCCL refuses two ranks on
+# one device), each held against the single-process step on the same seed
+# and tokens with train_vs_einsum's bounds: the ranks' bf16 partial sums
+# add in another order (tp), or the rows' grads in another order (dp).
+# (name, axes, layers, batch rows)
+TP2_CASES = (("tp2", {"dp": 1, "tp": 2}, TRAIN_LAYERS, 1),
+             ("dp2", {"dp": 2, "tp": 1}, 1, 2))
+# Head dim 256: Llama-3-8B's width with 16 query heads (8 kv), one layer.
+REPAIR_HEADS = 16
 
 
 def emit(obj) -> None:
@@ -741,7 +774,8 @@ def phase_train(tt, kernels) -> tuple:
     losses, step_s = [], []
     torch.cuda.reset_peak_memory_stats()
     state_before = card_state()
-    for _ in range(TRAIN_STEPS):
+    first = None
+    for i in range(TRAIN_STEPS):
         for k in kernels:
             k.launches = 0
         torch.cuda.synchronize()
@@ -752,6 +786,8 @@ def phase_train(tt, kernels) -> tuple:
         launches = {k.name: k.launches for k in kernels}
         check(launches == want, f"train step launched {launches}, want {want}")
         losses.append(loss.item())
+        if i == 0:  # what the sharded step must reproduce from the same seed
+            first = (loss.item(), fingerprint(state))
     rec = {"phase": "train", "model": "llama3_8b", "layers": TRAIN_LAYERS,
            "tokens": [1, TRAIN_SEQ], "remat": cfg.remat, "lr": TRAIN_LR,
            "losses": losses, "step_ms": [t * 1e3 for t in step_s],
@@ -762,7 +798,7 @@ def phase_train(tt, kernels) -> tuple:
     emit(rec)
     check(all(map(math.isfinite, losses)), f"train loss not finite: {losses}")
     check(losses[-1] < losses[0], f"loss did not fall over {TRAIN_STEPS} steps: {losses}")
-    return state, cfg, tokens, launches
+    return state, cfg, tokens, launches, first
 
 
 def phase_remat(kernels, state, cfg, tokens) -> None:
@@ -798,6 +834,360 @@ def phase_remat(kernels, state, cfg, tokens) -> None:
               f"remat={policy} changed the loss: {rec}")
 
 
+def fingerprint(state) -> dict:
+    """A float64 sum of every leaf of a TrainState (params, both AdamW
+    moments, the count, the step), by dotted name: two states with equal
+    fingerprints computed by the same code are taken as equal."""
+    from tputopo_torch import train as tr
+
+    out = {}
+    for part, tree in (("params", state.params), ("mu", state.opt_state.mu),
+                       ("nu", state.opt_state.nu)):
+        for name, leaf in zip(tr._leaf_names(tree), tr._leaves(tree)):
+            out[f"{part}.{name}"] = torch.sum(leaf, dtype=torch.float64).item()
+    out["count"] = int(state.opt_state.count)
+    out["step"] = int(state.step)
+    return out
+
+
+def _views(shape, gen, dtype):
+    """q, k, v and dO of ``shape`` [B, S, N, H] as views the kernels cannot
+    read as they are: q transposed from [B, N, S, H], k a head slice of
+    [B, S, N + 1, H], v starting one element into its storage, dO a
+    strided slice of [B, S, N, 2H]."""
+    B, S, N, H = shape
+    q = torch.randn((B, N, S, H), generator=gen, device="cuda").to(dtype).transpose(1, 2)
+    k = torch.randn((B, S, N + 1, H), generator=gen, device="cuda").to(dtype)[:, :, 1:]
+    v = torch.randn((B * S * N * H + 1,), generator=gen, device="cuda").to(dtype)[1:]
+    do = torch.randn((B, S, N, 2 * H), generator=gen, device="cuda").to(dtype)[..., ::2]
+    return q, k, v.view(B, S, N, H), do
+
+
+def phase_repairs(tt, att, kernels) -> None:
+    """The two repaired faults of the flash path.  (1) "auto" picks the
+    kernel only for the head dims it takes: a forward at d_model 4096 with
+    16 heads (H = 256), one layer, launches no kernel and equals the
+    einsum path.  (2) The wrappers take views: the kernels on views at the
+    kernel table's shape against their plain versions on the same views."""
+    from tputopo_torch.model import _use_flash
+
+    cfg = dataclasses.replace(tt.ModelConfig.llama3_8b(), n_layers=1,
+                              n_heads=REPAIR_HEADS)
+    check(cfg.head_dim == 256, f"head dim {cfg.head_dim}")
+    check(not _use_flash(cfg, TRAIN_SEQ, torch.device("cuda")),
+          "auto picked the kernel for head dim 256")
+    params = tt.init_params(cfg, 0)
+    tokens = torch.randint(0, cfg.vocab_size, (1, TRAIN_SEQ), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(7))
+    for k in kernels:
+        k.launches = 0
+    logits = tt.forward(params, tokens, cfg)
+    launches = {k.name: k.launches for k in kernels}
+    ref = tt.forward(params, tokens, dataclasses.replace(cfg, attn_impl="einsum"))
+    torch.cuda.synchronize()
+    rec = {"phase": "repairs", "head_dim_256": {
+        "d_model": cfg.d_model, "n_heads": cfg.n_heads, "layers": 1,
+        "tokens": [1, TRAIN_SEQ], "launches": launches,
+        "finite": bool(torch.isfinite(logits).all()),
+        "equals_einsum_path": bool(torch.equal(logits, ref))}}
+    del params, logits, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    shape = (1, TRAIN_SEQ, 32, 128)
+    q, k, v, do = _views(shape, gen, torch.bfloat16)
+    dense = all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (q, k, v, do))
+    o, lse = att.flash_forward_lse(q, k, v, causal=True, block_q=128, block_kv=128)
+    po, plse = att._flash_forward_lse_plain(q, k, v, causal=True)
+    got = att.flash_backward(q, k, v, o, lse, do, causal=True, block_q=128, block_kv=128)
+    d = att._flash_d(o, do.contiguous())
+    want = (att._flash_dq_plain(q, k, v, do, lse, d, causal=True),
+            *att._flash_dkv_plain(q, k, v, do, lse, d, causal=True))
+    torch.cuda.synchronize()
+    atol, rtol = TOL[torch.bfloat16]
+    err = (o.float() - po.float()).abs()
+    views = {"shape": list(shape), "dtype": "bfloat16", "operands_dense": dense,
+             "o_max_abs_err": err.max().item(),
+             "o_within": bool((err <= atol + rtol * po.float().abs()).all()),
+             "lse_max_abs_err": (lse - plse).abs().max().item(), "lse_tol": LSE_TOL,
+             "bound_norm_rel": BWD_BF16_NORM_REL}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        views[f"{name}_norm_rel_err"] = ((g.float() - w.float()).norm()
+                                         / w.float().norm()).item()
+    rec["views"] = views
+    emit(rec)
+    h = rec["head_dim_256"]
+    check(h["finite"] and h["equals_einsum_path"] and not any(launches.values()),
+          f"repairs: head dim 256 under auto: {h}")
+    check(not dense and views["o_within"] and views["lse_max_abs_err"] <= LSE_TOL
+          and all(views[f"{n}_norm_rel_err"] <= BWD_BF16_NORM_REL for n in ("dq", "dk", "dv")),
+          f"repairs: kernels on views disagree with their plain versions: {views}")
+
+
+def stream_gbps() -> float:
+    """HBM bandwidth of a device-to-device copy of STREAM_BYTES: the bytes
+    read plus the bytes written over the copy's time."""
+    src = torch.empty(STREAM_BYTES // 4, dtype=torch.float32, device="cuda")
+    dst = torch.empty_like(src)
+    ms = cuda_ms(lambda: dst.copy_(src), launches=10, reps=5)
+    return 2 * STREAM_BYTES / (ms / 1e3) / 1e9
+
+
+def phase_dist_world1() -> None:
+    """A world-1 NCCL group through the gang bootstrap with no gang env;
+    the all-reduce measurement over it (one rank: no link is measured);
+    the link model's prediction for one GPU (0, as the reference's box
+    model gives for one chip); the cost model calibrated from a measured
+    HBM stream, the only figure one card can calibrate."""
+    import torch.distributed as dist
+    from tputopo_torch import linkmodel, validate
+    from tputopo_torch.collective import measure_allreduce
+    from tputopo_torch.distributed import initialize_from_env
+
+    group = initialize_from_env({}, device="cuda")
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1 and group.single,
+          f"world-1 group: backend {dist.get_backend()}, world {dist.get_world_size()}")
+    res = measure_allreduce(payload_mb=ALLREDUCE_MB, iters=20, warmup=3)
+    report = validate.validate_slice("h100:1", payload_mb=ALLREDUCE_MB, iters=10)
+    hbm = stream_gbps()
+    topo = linkmodel.parse_topology("h100:1")
+    cal = validate.calibrate_cost_model(topo, measured_hbm_gbps=hbm)
+    rec = {"phase": "dist_world1", "backend": "nccl", "world": 1,
+           "allreduce": {**res.to_dict(), "label": "world 1, not a link measurement"},
+           "validate": report.to_dict(), "stream_hbm_gbps": hbm,
+           "calibrated": dataclasses.asdict(cal),
+           "measured_vs_spec": validate.measured_vs_spec(cal, "h100")}
+    emit(rec)
+    check(report.predicted_gbps == 0.0, f"one GPU predicted {report.predicted_gbps}")
+    check(res.n_devices == 1 and res.time_ms > 0, f"world-1 all-reduce: {rec['allreduce']}")
+    check(cal.hbm_gbps == hbm and cal.ici_link_gbps == topo.generation.ici_link_gbps,
+          f"calibration: {rec['calibrated']}")
+
+
+def phase_sharded_train_world1(tt, kernels, tokens, first) -> dict:
+    """make_sharded_state and one make_sharded_train_step on {dp: 1, tp: 1}
+    over the world-1 NCCL group at the training shape, from the seed that
+    phase ``train`` started from: the loss and the fingerprint of the
+    state after the step equal train_step's bit for bit."""
+    from tputopo_torch import sharding as sh
+    from tputopo_torch import train as tr
+
+    cfg = dataclasses.replace(tt.ModelConfig.llama3_8b(), n_layers=TRAIN_LAYERS)
+    plan = sh.build_mesh({"dp": 1, "tp": 1}, device="cuda")
+    t0 = time.perf_counter()
+    state = tr.make_sharded_state(plan, cfg, 0, lr=TRAIN_LR)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step = tr.make_sharded_train_step(plan, cfg, lr=TRAIN_LR)
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    state, loss = step(state, sh.local_batch(plan, tokens))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k.name: k.launches for k in kernels}
+    got = fingerprint(state)
+    ref_loss, ref = first
+    diff = sorted(n for n in ref if got[n] != ref[n])
+    rec = {"phase": "sharded_train_world1", "model": "llama3_8b", "layers": TRAIN_LAYERS,
+           "mesh": plan.axes, "backend": "nccl", "tokens": list(tokens.shape),
+           "init_s": init_s, "step_ms": step_ms, "launches_per_step": launches,
+           "loss": loss.item(), "train_step_loss": ref_loss,
+           "leaves_compared": len(ref), "leaves_differing": diff,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(rec)
+    want = {"flash_fwd": 2 * TRAIN_LAYERS, "flash_bwd_dq": TRAIN_LAYERS,
+            "flash_bwd_dkv": TRAIN_LAYERS}
+    check(launches == want, f"sharded step launched {launches}, want {want}")
+    check(loss.item() == ref_loss and not diff,
+          f"world-1 sharded step differs from train_step: {rec}")
+    return launches
+
+
+def tp2_rank_main(rank: int, workdir: str) -> int:
+    """One rank of ``tp2_gloo_cuda``: two processes on the one card over
+    gloo.  First gloo's all-reduce SUM and MAX on CUDA tensors; then, for
+    each of TP2_CASES, one sharded step from the seed, and in turns (one
+    rank at a time, for memory) the single-process loss and grads from the
+    same seed and tokens, held against this rank's shards.  The step's
+    grads are read back from its first AdamW moment, mu = (1 - b1) * g
+    from zeros.  Writes rank<r>.json into ``workdir``."""
+    import torch.distributed as dist
+    import tputopo_torch as tt
+    from tputopo_torch import _kernels
+    from tputopo_torch import sharding as sh
+    from tputopo_torch import train as tr
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(f"{workdir}/store", 2),
+                            rank=rank, world_size=2)
+    go = Path(workdir, "go")
+    while not go.exists():  # the main process frees the card first
+        time.sleep(0.05)
+    out = {"rank": rank}
+    x = torch.full((4,), float(rank + 1), device="cuda")
+    y = x.clone()
+    dist.all_reduce(x)
+    dist.all_reduce(y, op=dist.ReduceOp.MAX)
+    out["gloo_cuda"] = {"sum": x.tolist(), "max": y.tolist(),
+                        "ok": x.tolist() == [3.0] * 4 and y.tolist() == [2.0] * 4}
+    for name, axes, layers, rows in TP2_CASES if out["gloo_cuda"]["ok"] else ():
+        cfg = dataclasses.replace(tt.ModelConfig.llama3_8b(), n_layers=layers)
+        tokens = torch.randint(0, cfg.vocab_size, (rows, TRAIN_SEQ), device="cuda",
+                               generator=torch.Generator(device="cuda").manual_seed(3))
+        plan = sh.build_mesh(axes, device="cuda")
+        t0 = time.perf_counter()
+        state = tr.make_sharded_state(plan, cfg, 0, lr=TRAIN_LR)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        for k in _kernels.KERNELS:
+            k.launches = 0
+        t0 = time.perf_counter()
+        state, loss = tr.make_sharded_train_step(plan, cfg, lr=TRAIN_LR)(
+            state, sh.local_batch(plan, tokens))
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in _kernels.KERNELS}
+        n_local = sum(p.numel() for p in tr._leaves(state.params))
+        names = tr._leaf_names(state.params)
+        specs = tr._leaves(sh.param_specs(plan, cfg))
+        grads = [mu.div_(1 - tr.AdamW.B1) for mu in tr._leaves(state.opt_state.mu)]
+        del state
+        torch.cuda.empty_cache()
+        rel, ref_loss = {}, None
+        for turn in range(2):
+            dist.barrier()
+            if turn != rank:
+                continue
+            t0 = time.perf_counter()
+            params = tt.init_params(cfg, 0)
+            ref_loss, ref_grads = tr.loss_and_grads(params, tokens, cfg)
+            del params
+            for n, g, r, spec in zip(names, grads, ref_grads, specs):
+                r = sh.shard_leaf(r, spec, plan)
+                rel[n] = ((g - r).norm() / r.norm()).item()
+            del ref_grads, r
+            torch.cuda.empty_cache()
+            ref_s = time.perf_counter() - t0
+        dist.barrier()
+        del grads
+        torch.cuda.empty_cache()
+        out[name] = {"mesh": plan.axes, "layers": layers, "tokens": [rows, TRAIN_SEQ],
+                     "local_params": n_local, "loss": loss.item(),
+                     "single_process_loss": ref_loss.item(),
+                     "grad_norm_rel_err": rel, "init_s": init_s, "step_s": step_s,
+                     "single_process_s": ref_s, "launches_per_step": launches,
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    dist.destroy_process_group()
+    Path(workdir, f"rank{rank}.json").write_text(json.dumps(out))
+    return 0
+
+
+def run_cli() -> dict:
+    """``python -m tputopo_torch allreduce --topology h100:1`` and ``train
+    --steps 3 --ckpt-dir D`` as subprocesses at the same time, then
+    ``train --steps 2 --ckpt-dir D``, resumed from the first run's
+    checkpoint.  Returns each run's exit code, last stdout line and
+    seconds."""
+    ckpt = tempfile.mkdtemp(prefix="tputopo_cli_")
+    runs = [{"allreduce": ["allreduce", "--topology", "h100:1"],
+             "train": ["train", "--steps", "3", "--ckpt-dir", ckpt]},
+            {"train_resume": ["train", "--steps", "2", "--ckpt-dir", ckpt]}]
+    out = {}
+    try:
+        for batch in runs:
+            t0 = time.perf_counter()
+            procs = {name: subprocess.Popen([sys.executable, "-m", "tputopo_torch", *args],
+                                            cwd=REPO, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE, text=True)
+                     for name, args in batch.items()}
+            for name, p in procs.items():
+                try:
+                    stdout, stderr = p.communicate(timeout=300)
+                finally:
+                    if p.poll() is None:
+                        p.kill()
+                        p.communicate()
+                lines = [ln for ln in stdout.splitlines() if ln.strip()]
+                out[name] = {"rc": p.returncode, "seconds": time.perf_counter() - t0,
+                             "json": json.loads(lines[-1]) if p.returncode == 0 else None,
+                             "stderr_tail": stderr[-1500:] if p.returncode else ""}
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    return out
+
+
+def start_tp2_ranks() -> dict:
+    """Start the two rank processes of ``tp2_gloo_cuda`` (see tp2_rank_main).
+    They import, join their gloo group and wait for the ``go`` file, so
+    their start-up overlaps the phases before; :func:`phase_tp2_gloo_cuda`
+    lets them go once this process has freed the card's memory."""
+    workdir = tempfile.mkdtemp(prefix="tputopo_tp2_")
+    logs = [open(Path(workdir, f"rank{r}.log"), "w") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), "--tp2-rank",
+                               str(r), workdir], cwd=REPO, stdout=logs[r],
+                              stderr=subprocess.STDOUT) for r in range(2)]
+    return {"workdir": workdir, "logs": logs, "procs": procs}
+
+
+def stop_tp2_ranks(ranks: dict) -> None:
+    """Kill rank processes still running, close their logs, remove their
+    directory."""
+    for p in ranks["procs"]:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    for f in ranks["logs"]:
+        f.close()
+    shutil.rmtree(ranks["workdir"], ignore_errors=True)
+
+
+def phase_tp2_gloo_cuda(ranks: dict) -> dict:
+    """Let the two rank processes go (see tp2_rank_main) and hold each case
+    against the single-process step: |dloss| <= TRAIN_LOSS_TOL and
+    per-leaf ||dgrad|| / ||grad|| <= TRAIN_GRAD_NORM_REL on every rank.
+    Gloo stages every collective through host memory, so the seconds are
+    no speed figure.  Returns rank 0's launches of the tp = 2 step."""
+    workdir = ranks["workdir"]
+    Path(workdir, "go").touch()
+    rcs = [p.wait(timeout=600) for p in ranks["procs"]]
+    for f in ranks["logs"]:
+        f.flush()
+    tails = [Path(workdir, f"rank{r}.log").read_text()[-3000:] for r in range(2)]
+    check(rcs == [0, 0], f"tp2 rank processes exited {rcs}:\n" + "\n".join(tails))
+    results = [json.loads(Path(workdir, f"rank{r}.json").read_text()) for r in range(2)]
+    gloo = [r["gloo_cuda"] for r in results]
+    emit({"phase": "tp2_gloo_cuda", "check": "gloo all_reduce SUM and MAX on CUDA tensors",
+          "ranks": gloo})
+    check(all(g["ok"] for g in gloo), f"gloo does not carry all_reduce on CUDA tensors: {gloo}")
+    for name, axes, layers, rows in TP2_CASES:
+        per_rank = [r[name] for r in results]
+        dloss = max(abs(r["loss"] - r["single_process_loss"]) for r in per_rank)
+        worst = max(max(r["grad_norm_rel_err"].values()) for r in per_rank)
+        want = {"flash_fwd": 2 * layers, "flash_bwd_dq": layers, "flash_bwd_dkv": layers}
+        rec = {"phase": "tp2_gloo_cuda", "case": name, "backend": "gloo, CUDA tensors",
+               "ranks": per_rank, "abs_dloss": dloss, "bound_abs_dloss": TRAIN_LOSS_TOL,
+               "max_grad_norm_rel_err": worst, "bound_grad_norm_rel": TRAIN_GRAD_NORM_REL,
+               "note": "gloo stages every collective through host memory: no speed figure"}
+        emit(rec)
+        check(dloss <= TRAIN_LOSS_TOL and worst <= TRAIN_GRAD_NORM_REL,
+              f"tp2_gloo_cuda {name}: sharded step off the single-process step: {rec}")
+        check(all(r["launches_per_step"] == want for r in per_rank),
+              f"tp2_gloo_cuda {name}: launches {[r['launches_per_step'] for r in per_rank]}")
+    return results[0]["tp2"]["launches_per_step"]
+
+
+def check_cli(cli: dict) -> None:
+    emit({"phase": "cli", "runs": cli})
+    for name, run in cli.items():
+        check(run["rc"] == 0, f"cli {name} exited {run['rc']}: {run['stderr_tail']}")
+    ar, tr1, tr2 = cli["allreduce"]["json"], cli["train"]["json"], cli["train_resume"]["json"]
+    check(ar["topology"] == "h100:1" and ar["predicted_gbps"] == 0.0
+          and ar["measured_n_devices"] == 1, f"cli allreduce: {ar}")
+    check(tr1["final_step"] == 3 and tr1["last_loss"] < tr1["first_loss"],
+          f"cli train: loss did not fall: {tr1}")
+    check(tr2["resumed_from"] == 3 and tr2["final_step"] == 5, f"cli resume: {tr2}")
+
+
 def device_profile(path: str, fn, top: int = 12) -> dict:
     """Device time by kernel over one run of ``fn``, from torch.profiler.
     The wall time includes the profiler's own overhead, so the idle share
@@ -831,6 +1221,7 @@ def main() -> int:
     check(torch.cuda.is_available(), "no CUDA device")
     import tputopo_torch as tt
     from tputopo_torch import _kernels, attention as att
+    from tputopo_torch.distributed import shutdown
 
     name = card()
     emit({"phase": "card", "nvidia_smi": name,
@@ -854,6 +1245,9 @@ def main() -> int:
 
     entries = [timed("flash", phase_flash, att, _kernels.FLASH_FWD),
                *timed("flash_bwd", phase_flash_bwd, att)]
+    timed("repairs", phase_repairs, tt, att, _kernels.KERNELS)
+    gc.collect()
+    torch.cuda.empty_cache()
     params, cfg, tokens, fwd_launches = timed("forward", phase_forward, tt,
                                               _kernels.KERNELS)
     prompt = timed("generate", phase_generate, tt, _kernels.KERNELS, params, cfg)
@@ -873,16 +1267,44 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    state, tcfg, ttokens, step_launches = timed("train", phase_train, tt,
-                                                _kernels.KERNELS)
+    state, tcfg, ttokens, step_launches, first = timed("train", phase_train, tt,
+                                                       _kernels.KERNELS)
     timed("profile_train_step", lambda: emit(device_profile(
         "train_step", lambda: tt.train_step(state, ttokens, tcfg, lr=TRAIN_LR))))
     timed("remat", phase_remat, _kernels.KERNELS, state, tcfg, ttokens)
+    # One ~31 GB training state at a time: the sharded step builds its own.
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The multi-GPU slice.  The rank processes of tp2_gloo_cuda start now
+    # and wait until this process holds none of its states; the CLI's runs
+    # go beside them.
+    t_slice = time.perf_counter()
+    tp2 = start_tp2_ranks()
+    try:
+        timed("dist_world1", phase_dist_world1)
+        sharded_launches = timed("sharded_train_world1", phase_sharded_train_world1, tt,
+                                 _kernels.KERNELS, ttokens, first)
+        gc.collect()
+        torch.cuda.empty_cache()
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            cli = pool.submit(timed, "cli", run_cli)
+            tp2_launches = timed("tp2_gloo_cuda", phase_tp2_gloo_cuda, tp2)
+            cli = cli.result()
+        check_cli(cli)
+    finally:
+        stop_tp2_ranks(tp2)
+        shutdown()
+    seconds["multi_gpu_slice"] = time.perf_counter() - t_slice
+    seconds["multi_gpu_slice_and_repairs"] = seconds["multi_gpu_slice"] + seconds["repairs"]
     for e in entries:
         e["launches"] = step_launches[e["name"]]  # per train step, the main path
         e["launches_by_path"] = {"forward": fwd_launches[e["name"]],
                                  "train_step": step_launches[e["name"]],
-                                 "serve": serve_launches[e["name"]]}
+                                 "serve": serve_launches[e["name"]],
+                                 "sharded_train_step": sharded_launches[e["name"]],
+                                 "tp2_rank": tp2_launches[e["name"]]}
     emit({"phase": "seconds", **seconds})
     emit({"kernels": entries})
     print(name, flush=True)
@@ -893,4 +1315,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tp2-rank"]:
+        sys.exit(tp2_rank_main(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

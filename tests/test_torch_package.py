@@ -37,7 +37,10 @@ def test_port_imports_no_jax_and_nothing_of_tputopo():
     assert res.returncode == 0, res.stderr
     got = json.loads(res.stdout.strip().splitlines()[-1])
     assert got["bad"] == []
-    assert {"tputopo_torch.quant", "tputopo_torch.serving"} <= set(got["port"])
+    assert {"tputopo_torch.quant", "tputopo_torch.serving", "tputopo_torch.distributed",
+            "tputopo_torch.collective", "tputopo_torch.linkmodel",
+            "tputopo_torch.validate", "tputopo_torch.sharding", "tputopo_torch.data",
+            "tputopo_torch.checkpoint", "tputopo_torch.__main__"} <= set(got["port"])
 
 
 def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):

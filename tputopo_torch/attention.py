@@ -21,7 +21,10 @@ reference's ``flash_out``/``flash_lse`` checkpoint names, used by the
 model's ``remat="dots"``).
 
 Layout at the public boundary is the JAX one, q/k/v ``[B, S, N, H]`` with
-equal head counts (callers expand GQA groups first).  The LSE is an f32
+equal head counts (callers expand GQA groups first), in any strides: the
+wrappers hand the kernels a fresh contiguous copy of an operand that is not
+contiguous or not on a 16-byte boundary (:func:`_dense`), and pass the rest
+as they are.  The LSE is an f32
 ``[B*N, S]`` tensor, rows ordered ``b * N + n``: the reference's
 ``[BN, n_q, bq]`` is its TPU tiling of the same numbers.
 """
@@ -113,6 +116,15 @@ def _flash_d(o, do):
 
 
 # ---- the kernels' wrappers ------------------------------------------------
+
+def _dense(*tensors: torch.Tensor) -> tuple:
+    """Each tensor as the kernels take it: itself when contiguous and on a
+    16-byte boundary, else a fresh contiguous copy (a transposed view, a
+    head slice, a storage offset)."""
+    return tuple(t if t.is_contiguous() and t.data_ptr() % 16 == 0
+                 else t.clone(memory_format=torch.contiguous_format)
+                 for t in tensors)
+
 
 def _launch_args(kernel: _kernels.Kernel, tensors: dict, rows: dict, causal: bool,
                  outputs: dict) -> tuple:
@@ -216,7 +228,7 @@ def flash_forward_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     divisible by both; causal needs them equal) so the two APIs accept
     and reject the same calls; the CUDA kernels pick their own tiles."""
     _validate(q, k, v, causal, block_q, block_kv)
-    return torch.ops.tputopo.flash_fwd(q, k, v, causal)
+    return torch.ops.tputopo.flash_fwd(*_dense(q, k, v), causal)
 
 
 def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -231,7 +243,7 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
                          f"have q's shape {tuple(q.shape)}")
     # autograd may hand a non-contiguous or expanded (stride-0) cotangent
-    do = do.contiguous()
+    q, k, v, o, lse, do = _dense(q, k, v, o, lse, do)
     d = _flash_d(o, do)
     if q.device.type == "cpu":
         dq = _flash_dq_plain(q, k, v, do, lse, d, causal=causal)
@@ -250,6 +262,7 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, block_q, block_kv):
+        q, k, v = _dense(q, k, v)
         o, lse = torch.ops.tputopo.flash_fwd(q, k, v, causal)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.blocks = (causal, block_q, block_kv)

@@ -10,7 +10,8 @@ int4 leaves (ml_dtypes ``int4``, which torch cannot take) through int8
 into the port's packed form (:func:`~.quant.pack_int4`).
 :func:`train_state_from_numpy`
 carries a training run across: the parameters with optax's AdamW moments
-and step count.
+and step count.  :func:`sharded_params_from_numpy` carries a tree onto a
+mesh plan: the whole tree converted, then cut to this rank's shards.
 """
 
 from __future__ import annotations
@@ -67,3 +68,13 @@ def train_state_from_numpy(params, mu, nu, count, step, *,
                             mu=params_from_numpy(mu, device=dev),
                             nu=params_from_numpy(nu, device=dev)),
         step=scalar(step))
+
+
+def sharded_params_from_numpy(tree, plan, config, *,
+                              dtype: torch.dtype | None = None) -> dict:
+    """This rank's shards of a whole numpy parameter tree under ``plan``
+    (:func:`~.sharding.param_specs` for ``config``), on the plan's device."""
+    from tputopo_torch.sharding import param_specs, shard_tree
+
+    full = params_from_numpy(tree, device=plan.device, dtype=dtype)
+    return shard_tree(full, param_specs(plan, config), plan)

@@ -19,13 +19,28 @@ matmul outputs and the flash forward's ``(o, lse)`` and recomputes the
 rest, ``"none"`` keeps everything.
 
 Weights may be raw tensors or the int8/int4 leaves of :mod:`.quant`.
+Under an active mesh plan (:func:`.sharding.activate`) with ``tp > 1``
+the forward runs Megatron's tensor-parallel split on each rank's local
+shards, with the collectives written out: ``wq``/``wk``/``wv``/``w_gate``/
+``w_up`` hold a block of output features, ``wo``/``w_down`` a block of input
+features, ``lm_head`` a block of the vocab.  A pair of autograd functions
+carries every collective: :func:`copy_to_tp` (identity forward, all-reduce
+of the gradient backward) where a replicated activation enters a
+column-parallel block, and :func:`reduce_from_tp` (all-reduce forward,
+identity backward) where a row-parallel block's partial sums leave it.  So
+each block costs one all-reduce forward and one backward, all of them
+``all_reduce`` calls, which NCCL and gloo both carry.  Each rank runs
+attention, through the flash kernels, on its ``n_heads / tp`` heads.  When
+tp does not divide the kv heads, ``wk``/``wv`` stay whole on every rank and
+each rank takes the kv heads its q heads read (:func:`.sharding.kv_replicated`).
+
 What the port leaves out so far raises ``NotImplementedError``: MoE
-layers (``moe``) and LoRA weight leaves.  The reference's
-context-parallel strategies (``sp_impl``) act only under an
-active multi-device mesh plan, which a single card never has; the port
-keeps the field and its eager check so configs carry over.  The
-reference's ``constrain`` sharding annotations are the identity on one
-card and are dropped.
+layers (``moe``), LoRA weight leaves, and plans with ``pp``, ``sp`` or
+``ep`` above 1.  The reference's context-parallel strategies (``sp_impl``)
+act only under a plan with ``sp > 1``; the port keeps the field and its
+eager check so configs carry over.  The reference's ``constrain``
+annotations are the identity here (:func:`.sharding.constrain`): the
+collectives above carry the layout.
 
 Entry points run on ``cuda`` unless the caller asks for the CPU
 (``device="cpu"``); with no GPU and no such request they raise.
@@ -38,6 +53,7 @@ import math
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
@@ -182,16 +198,27 @@ def _apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.
 
 
 def _attention(x: torch.Tensor, p: dict, config: ModelConfig,
-               cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+               cos: torch.Tensor, sin: torch.Tensor, tp=None) -> torch.Tensor:
     c = config
     B, S, D = x.shape
-    q = qdot(x, p["wq"]).reshape(B, S, c.n_heads, c.head_dim)
-    k = qdot(x, p["wk"]).reshape(B, S, c.n_kv_heads, c.head_dim)
-    v = qdot(x, p["wv"]).reshape(B, S, c.n_kv_heads, c.head_dim)
+    n_heads, n_kv = c.n_heads, c.n_kv_heads
+    if tp is not None:
+        x = copy_to_tp(x, tp.group)
+        n_heads //= tp.size
+        if not tp.kv_replicated:
+            n_kv //= tp.size
+    q = qdot(x, p["wq"]).reshape(B, S, n_heads, c.head_dim)
+    k = qdot(x, p["wk"]).reshape(B, S, n_kv, c.head_dim)
+    v = qdot(x, p["wv"]).reshape(B, S, n_kv, c.head_dim)
     q = _apply_rope(q, cos, sin)
     k = _apply_rope(k, cos, sin)
     group = c.n_heads // c.n_kv_heads
-    if group > 1:
+    if tp is not None and tp.kv_replicated:
+        # this rank's q head i is global head rank * n_heads + i, which
+        # reads kv head (rank * n_heads + i) // group of the whole set
+        idx = (torch.arange(n_heads, device=x.device) + tp.rank * n_heads) // group
+        k, v = k[:, :, idx], v[:, :, idx]
+    elif group > 1:
         # query head n reads kv head n // group (jnp.repeat's order)
         k = k.repeat_interleave(group, dim=2)
         v = v.repeat_interleave(group, dim=2)
@@ -206,8 +233,8 @@ def _attention(x: torch.Tensor, p: dict, config: ModelConfig,
                                     torch.finfo(logits.dtype).min)
         probs = torch.softmax(logits.float(), dim=-1).to(x.dtype)
         out = torch.einsum("bnqk,bknh->bqnh", probs, v)
-    out = out.reshape(B, S, c.n_heads * c.head_dim)
-    return qdot(out, p["wo"])
+    out = qdot(out.reshape(B, S, n_heads * c.head_dim), p["wo"])
+    return out if tp is None else reduce_from_tp(out, tp.group)
 
 
 def _use_flash(c: ModelConfig, seq: int, device: torch.device) -> bool:
@@ -225,8 +252,10 @@ def _use_flash(c: ModelConfig, seq: int, device: torch.device) -> bool:
         return True
     if c.attn_impl != "auto":
         raise ValueError(f"unknown attn_impl {c.attn_impl!r}")
-    # The same shape rule that picks the kernel on a TPU, on a CUDA card.
-    return block == 128 and shapes_ok and device.type == "cuda"
+    # The same shape rule that picks the kernel on a TPU, on a CUDA card,
+    # and the head dims the kernels take (a multiple of 8 in [8, 128]).
+    head_ok = c.head_dim % 8 == 0 and 8 <= c.head_dim <= 128
+    return block == 128 and shapes_ok and head_ok and device.type == "cuda"
 
 
 def _flash_dispatch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -236,21 +265,25 @@ def _flash_dispatch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     return flash_attention(q, k, v, causal=True, block_q=block, block_kv=block)
 
 
-def _mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
+def _mlp(x: torch.Tensor, p: dict, tp=None) -> torch.Tensor:
+    if tp is not None:
+        x = copy_to_tp(x, tp.group)
     gate = F.silu(qdot(x, p["w_gate"]))
     up = qdot(x, p["w_up"])
-    return qdot(gate * up, p["w_down"])
+    y = qdot(gate * up, p["w_down"])
+    return y if tp is None else reduce_from_tp(y, tp.group)
 
 
 def transformer_block(x: torch.Tensor, layer: dict, config: ModelConfig,
-                      cos: torch.Tensor, sin: torch.Tensor
+                      cos: torch.Tensor, sin: torch.Tensor, tp=None
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """One decoder layer: (x, one layer's params) -> (x, aux loss), aux 0
-    for the dense FFN."""
+    for the dense FFN.  ``tp`` (:func:`tp_context`) runs it on this rank's
+    shards."""
     c = config
     h = x + _attention(_rmsnorm(x, layer["attn_norm"], c.norm_eps), layer, c,
-                       cos, sin)
-    y = _mlp(_rmsnorm(h, layer["mlp_norm"], c.norm_eps), layer)
+                       cos, sin, tp)
+    y = _mlp(_rmsnorm(h, layer["mlp_norm"], c.norm_eps), layer, tp)
     return h + y, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -292,7 +325,8 @@ def apply_remat(block_fn, remat: str):
 
 
 def _block_loop(x: torch.Tensor, layers: dict, config: ModelConfig,
-                cos: torch.Tensor, sin: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                cos: torch.Tensor, sin: torch.Tensor,
+                tp=None) -> tuple[torch.Tensor, torch.Tensor]:
     block = transformer_block
     recording = torch.is_grad_enabled() and (x.requires_grad or any(
         torch.is_tensor(w) and w.requires_grad for w in layers.values()))
@@ -300,7 +334,7 @@ def _block_loop(x: torch.Tensor, layers: dict, config: ModelConfig,
         block = apply_remat(transformer_block, config.remat)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(config.n_layers):
-        x, a = block(x, _layer(layers, i), config, cos, sin)
+        x, a = block(x, _layer(layers, i), config, cos, sin, tp)
         aux = aux + a
     return x, aux
 
@@ -315,33 +349,145 @@ def embed_tokens(params: dict, tokens: torch.Tensor, config: ModelConfig) -> tor
     return deq_rows(params["embed"], tokens, config.compute_dtype)
 
 
-def lm_head(params: dict, x: torch.Tensor, config: ModelConfig) -> torch.Tensor:
+def lm_head(params: dict, x: torch.Tensor, config: ModelConfig,
+            tp=None) -> torch.Tensor:
     """Final norm and head -> f32 logits.  The head is rounded to
     ``compute_dtype`` as in the reference, and the product of the two
     compute-dtype operands accumulates in f32 without rounding the logits:
     both operands are widened to f32, where bf16 products are exact.  A
-    quantized head contracts the f32 activations (:func:`.quant.qdot`)."""
+    quantized head contracts the f32 activations (:func:`.quant.qdot`).
+    Under ``tp`` the logits are this rank's block of the vocab."""
     x = _rmsnorm(x, params["final_norm"], config.norm_eps)
+    if tp is not None:
+        x = copy_to_tp(x, tp.group)
     w = params["lm_head"]
     if is_quantized(w):
         return qdot(x.float(), w)
     return x.float() @ w.to(config.compute_dtype).float()
 
 
-def forward_with_aux(params: dict, tokens: torch.Tensor,
-                     config: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
-    """Token ids [B, S] -> (logits [B, S, vocab] f32, aux loss scalar), on
-    the device that holds ``params``; differentiable in the parameters."""
+def trunk(params: dict, tokens: torch.Tensor, config: ModelConfig,
+          tp=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Token ids [B, S] -> (the last layer's output [B, S, D] in
+    ``compute_dtype``, aux loss scalar), on the device of ``params``."""
     c = config
-    _check_supported(c)
     device = params["final_norm"].device
     tokens = torch.as_tensor(tokens, device=device)
     cos, sin = _rope_tables(c, tokens.shape[1], device)
     x = embed_tokens(params, tokens, c)
-    x, aux = _block_loop(x, params["layers"], c, cos, sin)
-    return lm_head(params, x, c), aux
+    return _block_loop(x, params["layers"], c, cos, sin, tp)
+
+
+def forward_with_aux(params: dict, tokens: torch.Tensor,
+                     config: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """Token ids [B, S] -> (logits [B, S, vocab] f32, aux loss scalar), on
+    the device that holds ``params``; differentiable in the parameters.
+    Under an active plan with tp > 1, ``params`` are this rank's shards
+    and the vocab blocks are gathered into whole logits."""
+    _check_supported(config)
+    tp = tp_context(config)
+    x, aux = trunk(params, tokens, config, tp)
+    logits = lm_head(params, x, config, tp)
+    if tp is not None:
+        logits = _GatherFromTP.apply(logits, tp)
+    return logits, aux
 
 
 def forward(params: dict, tokens: torch.Tensor, config: ModelConfig) -> torch.Tensor:
     """Token ids [B, S] -> logits [B, S, vocab] (float32)."""
     return forward_with_aux(params, tokens, config)[0]
+
+
+# ---- tensor parallelism -----------------------------------------------------
+
+@dataclass(frozen=True)
+class TensorParallel:
+    """This rank's place in the active plan's tp group."""
+
+    group: object  # the tp process group
+    size: int
+    rank: int
+    kv_replicated: bool
+
+
+def tp_context(config: ModelConfig) -> TensorParallel | None:
+    """The tp group of the active plan (:func:`.sharding.activate`), or
+    None when no plan is active or tp is 1.  Raises for what the split
+    cannot take and for the axes the port does not run yet."""
+    from tputopo_torch.sharding import active_plan, kv_replicated
+
+    plan = active_plan()
+    if plan is None:
+        return None
+    plan.check_supported()
+    tp = plan.size("tp")
+    if tp == 1:
+        return None
+    c = config
+    for name, n in (("n_heads", c.n_heads), ("d_ff", c.d_ff),
+                    ("vocab_size", c.vocab_size)):
+        if n % tp:
+            raise ValueError(f"tp={tp} does not divide {name}={n}")
+    return TensorParallel(group=plan.group("tp"), size=tp, rank=plan.rank("tp"),
+                          kv_replicated=kv_replicated(plan, c))
+
+
+def all_reduce_f32(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """A fresh tensor: the all-reduce of ``x`` over ``group``, taken in f32
+    (the partial sums of a bf16 block add without further rounding) and
+    returned in ``x``'s dtype."""
+    y = x.detach().to(torch.float32, memory_format=torch.contiguous_format,
+                      copy=True)
+    dist.all_reduce(y, op=op, group=group)
+    return y.to(x.dtype)
+
+
+class _CopyToTP(torch.autograd.Function):
+    """Identity forward; all-reduce of the gradient over tp backward: the
+    replicated input of a column-parallel block gets every rank's part."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_f32(g, ctx.group), None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    """All-reduce forward; identity backward: a row-parallel block's
+    partial sums become the replicated output."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_f32(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromTP(torch.autograd.Function):
+    """All-gather of the last dim's blocks forward; this rank's block of
+    the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        parts = [torch.empty_like(x) for _ in range(tp.size)]
+        dist.all_gather(parts, x.contiguous(), group=tp.group)
+        return torch.cat(parts, dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.chunk(ctx.tp.size, dim=-1)[ctx.tp.rank], None
+
+
+def copy_to_tp(x: torch.Tensor, group) -> torch.Tensor:
+    return _CopyToTP.apply(x, group)
+
+
+def reduce_from_tp(x: torch.Tensor, group) -> torch.Tensor:
+    return _ReduceFromTP.apply(x, group)

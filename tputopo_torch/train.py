@@ -1,5 +1,5 @@
-"""Training step for the flagship LM on one device — the counterpart of the
-single-device part of ``tputopo/workloads/train.py``.
+"""Training step for the flagship LM — the counterpart of
+``tputopo/workloads/train.py``, on one device and sharded DP x TP.
 
 :func:`train_step` is forward, next-token cross-entropy, grads and one
 AdamW update, with optional gradient accumulation over microbatches.  The
@@ -11,19 +11,31 @@ Where the reference returns a new state, :func:`train_step` updates the
 parameters and moments in place and returns the same tensors in a new
 ``TrainState``: at Llama-3-8B width a second copy of them would not fit on
 one card.  The reference's sharded step donates its state buffers for the
-same reason.  The sharded, pipelined and MoE steps come with the multi-GPU
-slice.
+same reason.
+
+The sharded step (:func:`make_sharded_train_step`) runs on every rank of a
+:class:`~.sharding.MeshPlan` over that rank's shards (:func:`make_sharded_state`)
+and its dp block of the batch (:func:`~.sharding.local_batch`): local loss
+and grads, with the model's tensor-parallel collectives when tp > 1 and a
+vocab-parallel cross-entropy (:func:`vocab_parallel_nll`), then the grads'
+sum over dp divided by dp, then AdamW on the local shards.  AdamW is
+elementwise and clips nothing, so the update is the unsharded one.  The
+pipelined and MoE steps come with later slices.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
-from tputopo_torch.model import (ModelConfig, forward_with_aux, init_params,
-                                 resolve_device)
+from tputopo_torch import sharding as shardlib
+from tputopo_torch.model import (ModelConfig, _check_supported, all_reduce_f32,
+                                 forward_with_aux, init_params, lm_head,
+                                 reduce_from_tp, resolve_device, tp_context, trunk)
 
 
 @dataclass
@@ -110,7 +122,16 @@ def make_train_state(config: ModelConfig, seed: int = 0, lr: float = 3e-4, *,
 
 def loss_fn(params: dict, tokens: torch.Tensor, config: ModelConfig) -> torch.Tensor:
     """Next-token cross-entropy over [B, S] token ids (last position
-    dropped), from an f32 ``log_softmax``, plus the auxiliary loss."""
+    dropped), from an f32 ``log_softmax``, plus the auxiliary loss.  Under
+    an active plan with tp > 1, ``params`` are this rank's shards and the
+    loss is :func:`vocab_parallel_nll`'s, the same on every tp rank."""
+    tp = tp_context(config)
+    if tp is not None:
+        _check_supported(config)
+        x, aux = trunk(params, tokens, config, tp)
+        logits = lm_head(params, x, config, tp)  # [B, S, V / tp] f32
+        targets = torch.as_tensor(tokens, device=logits.device)[:, 1:]
+        return vocab_parallel_nll(logits[:, :-1], targets, tp).mean() + aux
     logits, aux = forward_with_aux(params, tokens, config)  # [B, S, V] f32
     targets = torch.as_tensor(tokens, device=logits.device)[:, 1:]
     logp = F.log_softmax(logits[:, :-1], dim=-1)
@@ -127,30 +148,167 @@ def loss_and_grads(params: dict, tokens: torch.Tensor,
     return loss.detach(), list(torch.autograd.grad(loss, leaves))
 
 
+def accumulated_loss_and_grads(params: dict, tokens: torch.Tensor, config: ModelConfig,
+                               accum_steps: int = 1) -> tuple[torch.Tensor, list]:
+    """:func:`loss_and_grads` of the batch, or with ``accum_steps > 1`` the
+    mean over that many equal microbatches, run one after another: their
+    grads are summed, so activation memory drops to one microbatch's worth
+    while the result is the full-batch gradient (exactly, for the dense
+    model: cross-entropy means over equal chunks average to the full
+    mean)."""
+    if accum_steps <= 1:
+        return loss_and_grads(params, tokens, config)
+    B = tokens.shape[0]
+    if B % accum_steps:
+        raise ValueError(f"batch {B} not divisible by accum_steps {accum_steps}")
+    loss, grads = 0.0, None
+    for mb in tokens.reshape(accum_steps, B // accum_steps, tokens.shape[1]):
+        l, g = loss_and_grads(params, mb, config)
+        loss = loss + l
+        grads = g if grads is None else [a.add_(b) for a, b in zip(grads, g)]
+    return loss / accum_steps, [g.div_(accum_steps) for g in grads]
+
+
 def train_step(state: TrainState, tokens: torch.Tensor, config: ModelConfig,
                lr: float = 3e-4, accum_steps: int = 1) -> tuple[TrainState, torch.Tensor]:
-    """One optimizer step, in place; returns (state, loss).
-
-    ``accum_steps > 1`` splits the batch into that many microbatches, runs
-    forward and backward on each in turn and sums their grads, then applies
-    ONE update with the mean: activation memory drops to one microbatch's
-    worth while the update sees the full-batch gradient (exactly, for the
-    dense model: cross-entropy means over equal chunks average to the
-    full mean)."""
-    if accum_steps <= 1:
-        loss, grads = loss_and_grads(state.params, tokens, config)
-    else:
-        B = tokens.shape[0]
-        if B % accum_steps:
-            raise ValueError(
-                f"batch {B} not divisible by accum_steps {accum_steps}")
-        loss, grads = 0.0, None
-        for mb in tokens.reshape(accum_steps, B // accum_steps, tokens.shape[1]):
-            l, g = loss_and_grads(state.params, mb, config)
-            loss = loss + l
-            grads = g if grads is None else [a.add_(b) for a, b in zip(grads, g)]
-        loss = loss / accum_steps
-        grads = [g.div_(accum_steps) for g in grads]
+    """One optimizer step, in place; returns (state, loss).  ``accum_steps
+    > 1`` accumulates the grads of that many microbatches and applies ONE
+    update (:func:`accumulated_loss_and_grads`)."""
+    loss, grads = accumulated_loss_and_grads(state.params, tokens, config, accum_steps)
     make_optimizer(lr).update_(grads, state.opt_state, state.params)
     return TrainState(params=state.params, opt_state=state.opt_state,
                       step=state.step + 1), loss
+
+
+def vocab_parallel_nll(logits: torch.Tensor, targets: torch.Tensor,
+                       tp) -> torch.Tensor:
+    """Per-token cross-entropy from this rank's block of the vocab
+    (``logits`` [..., V / tp] f32, block ``tp.rank``), never gathering the
+    whole logits: the all-reduce of the row max, of the sum of exps, and
+    of the target's logit from the rank that holds it."""
+    vl = logits.shape[-1]
+    m = logits.detach().amax(dim=-1)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=tp.group)
+    sumexp = reduce_from_tp(torch.exp(logits - m[..., None]).sum(dim=-1), tp.group)
+    local = targets - tp.rank * vl
+    mine = (local >= 0) & (local < vl)
+    picked = logits.gather(-1, local.clamp(0, vl - 1)[..., None])[..., 0]
+    target_logit = reduce_from_tp(torch.where(mine, picked, 0.0), tp.group)
+    return torch.log(sumexp) + m - target_logit
+
+
+# ---- sharded ----------------------------------------------------------------
+
+def opt_shardings(tree_shard, plan: shardlib.MeshPlan) -> AdamState:
+    """Optimizer-state layout for a trainable tree laid out by
+    ``tree_shard``: the AdamW moments mirror it, the count is replicated."""
+    return AdamState(count=plan.replicated(), mu=tree_shard, nu=tree_shard)
+
+
+def state_shardings(plan: shardlib.MeshPlan, config: ModelConfig,
+                    lr: float = 3e-4) -> TrainState:
+    """The layout of the whole TrainState, as axis names per dimension:
+    params per :func:`~.sharding.param_specs`, the moments mirroring the
+    params they track, the scalars replicated."""
+    pspecs = shardlib.param_specs(plan, config)
+    return TrainState(params=pspecs, opt_state=opt_shardings(pspecs, plan),
+                      step=plan.replicated())
+
+
+def make_sharded_state(plan: shardlib.MeshPlan, config: ModelConfig, seed: int = 0,
+                       lr: float = 3e-4) -> TrainState:
+    """This rank's shards of ``make_train_state(config, seed)`` on the plan's
+    device, equal to the slices of that tree bit for bit.  The leaves are
+    drawn one at a time in :func:`~.model.init_params`' order from the same
+    generator, each cut to its block before the next is drawn, so the
+    whole tree is never resident."""
+    c = config
+    _check_supported(c)
+    dev = plan.device
+    pspecs = shardlib.param_specs(plan, c)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    L, D, H, KV, Hd, Fd = (c.n_layers, c.d_model, c.n_heads, c.n_kv_heads,
+                           c.head_dim, c.d_ff)
+
+    def dense(shape, fan_in, spec):
+        w = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
+        return shardlib.shard_leaf(w.mul_(1.0 / math.sqrt(fan_in)), spec, plan)
+
+    def norm(shape, spec):
+        return shardlib.shard_leaf(torch.ones(shape, dtype=torch.float32,
+                                              device=dev), spec, plan)
+
+    ls = pspecs["layers"]
+    params = {  # the dict order is init_params' draw order
+        "embed": dense((c.vocab_size, D), D, pspecs["embed"]),
+        "layers": {
+            "attn_norm": norm((L, D), ls["attn_norm"]),
+            "wq": dense((L, D, H * Hd), D, ls["wq"]),
+            "wk": dense((L, D, KV * Hd), D, ls["wk"]),
+            "wv": dense((L, D, KV * Hd), D, ls["wv"]),
+            "wo": dense((L, H * Hd, D), H * Hd, ls["wo"]),
+            "mlp_norm": norm((L, D), ls["mlp_norm"]),
+            "w_gate": dense((L, D, Fd), D, ls["w_gate"]),
+            "w_up": dense((L, D, Fd), D, ls["w_up"]),
+            "w_down": dense((L, Fd, D), Fd, ls["w_down"]),
+        },
+        "final_norm": norm((D,), pspecs["final_norm"]),
+        "lm_head": dense((D, c.vocab_size), D, pspecs["lm_head"]),
+    }
+    return TrainState(params=params, opt_state=make_optimizer(lr).init(params),
+                      step=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def sharded_loss_and_grads(plan: shardlib.MeshPlan, params: dict,
+                           tokens: torch.Tensor, config: ModelConfig,
+                           accum_steps: int = 1) -> tuple[torch.Tensor, list]:
+    """This rank's part of one step before the update: the global loss and
+    the global grads' local shards (in :func:`_leaves` order), from this
+    rank's block of the batch ``tokens`` (:func:`~.sharding.local_batch`).
+    At tp = 1 the local loss is :func:`loss_fn`'s unsharded path exactly."""
+    plan.check_supported()
+    with shardlib.activate(plan):
+        loss, grads = accumulated_loss_and_grads(params, tokens, config, accum_steps)
+    if shardlib.kv_replicated(plan, config) and plan.size("tp") > 1:
+        # each tp rank holds the grad of wk/wv from its own q heads only
+        names = _leaf_names(params)
+        for i, name in enumerate(names):
+            if name in ("layers.wk", "layers.wv"):
+                dist.all_reduce(grads[i], group=plan.group("tp"))
+    dp, group = plan.size("dp"), plan.group("dp")
+    for g in grads:
+        dist.all_reduce(g, group=group)
+        g.div_(dp)
+    loss = all_reduce_f32(loss.reshape(1), group)[0] / dp
+    return loss, grads
+
+
+def _leaf_names(tree: dict, prefix: str = "") -> list[str]:
+    """Dotted leaf names in :func:`_leaves` order."""
+    return [n for k in sorted(tree) for n in (
+        _leaf_names(tree[k], f"{prefix}{k}.") if isinstance(tree[k], dict)
+        else [prefix + k])]
+
+
+def make_sharded_train_step(plan: shardlib.MeshPlan, config: ModelConfig,
+                            lr: float = 3e-4, n_micro: int | None = None,
+                            accum_steps: int = 1):
+    """The step over ``plan``: ``step(state, tokens) -> (state, loss)``
+    with ``state`` this rank's shards and ``tokens`` this rank's block of
+    the global batch.  It updates the shards in place, as
+    :func:`train_step` does, and returns the global loss.  ``n_micro``
+    (GPipe microbatches) belongs to the pipelined step of a later slice."""
+    plan.check_supported()
+    if n_micro is not None:
+        raise NotImplementedError("n_micro schedules the GPipe pipeline, which "
+                                  "comes with the GPipe slice (pipeline.py)")
+    opt = make_optimizer(lr)
+
+    def step(state: TrainState, tokens: torch.Tensor) -> tuple[TrainState, torch.Tensor]:
+        loss, grads = sharded_loss_and_grads(plan, state.params, tokens, config,
+                                             accum_steps)
+        opt.update_(grads, state.opt_state, state.params)
+        return TrainState(params=state.params, opt_state=state.opt_state,
+                          step=state.step + 1), loss
+
+    return step
