@@ -165,7 +165,8 @@ BWD_BF16_NORM_REL = 1e-2
 # H not a multiple of 16, H = 64 (one 64-column box) and H = 128 (two),
 # S = 320 (five 64-row tiles, an odd count for a two-stage ring, and a
 # ragged third 128-row tile whose two halves see different tile counts
-# under the causal mask), and the model's shape (last).
+# under the causal mask), the per-rank shape of the tp = 2 run (the
+# model's 32 heads split in two), and the model's shape (last).
 # (B, S, N, H, dtype, causal, block_q, block_kv)
 FLASH_CASES = [
     (2, 64, 2, 16, torch.float32, True, 16, 16),
@@ -179,6 +180,7 @@ FLASH_CASES = [
     (1, 256, 2, 128, torch.bfloat16, False, 128, 128),
     (1, 320, 2, 128, torch.bfloat16, True, 64, 64),
     (1, 320, 2, 128, torch.bfloat16, False, 64, 64),
+    (1, 2048, 16, 128, torch.bfloat16, True, 128, 128),
     (1, 2048, 32, 128, torch.bfloat16, True, 128, 128),
 ]
 

@@ -134,38 +134,44 @@ def _check_supported(c: ModelConfig) -> None:
         raise ValueError(f"unknown remat policy {c.remat!r}")
 
 
-def init_params(config: ModelConfig, seed: int = 0, *, device=None) -> dict:
+def init_params(config: ModelConfig, seed: int = 0, *, device=None,
+                cut=None) -> dict:
     """Parameter dict in the reference's stacked layout, f32, drawn from
-    a ``torch.Generator`` seeded with ``seed`` on the target device."""
+    a ``torch.Generator`` seeded with ``seed`` on the target device.
+
+    ``cut(path, leaf)``, when given, replaces each leaf (``path`` its tuple
+    of keys) as soon as it is drawn, before the next is drawn: the sharded
+    state keeps only its block of each, so the whole tree is never held."""
     c = config
     _check_supported(c)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
+    keep = cut or (lambda path, leaf: leaf)
 
-    def norm_init(shape):
-        return torch.ones(shape, dtype=torch.float32, device=dev)
+    def norm_init(path, shape):
+        return keep(path, torch.ones(shape, dtype=torch.float32, device=dev))
 
-    def dense_init(shape, fan_in):
+    def dense_init(path, shape, fan_in):
         w = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
-        return w.mul_(1.0 / math.sqrt(fan_in))
+        return keep(path, w.mul_(1.0 / math.sqrt(fan_in)))
 
     L, D, H, KV, Hd, Fd = (c.n_layers, c.d_model, c.n_heads, c.n_kv_heads,
                            c.head_dim, c.d_ff)
-    return {
-        "embed": dense_init((c.vocab_size, D), D),
+    return {  # the dict order is the draw order
+        "embed": dense_init(("embed",), (c.vocab_size, D), D),
         "layers": {
-            "attn_norm": norm_init((L, D)),
-            "wq": dense_init((L, D, H * Hd), D),
-            "wk": dense_init((L, D, KV * Hd), D),
-            "wv": dense_init((L, D, KV * Hd), D),
-            "wo": dense_init((L, H * Hd, D), H * Hd),
-            "mlp_norm": norm_init((L, D)),
-            "w_gate": dense_init((L, D, Fd), D),
-            "w_up": dense_init((L, D, Fd), D),
-            "w_down": dense_init((L, Fd, D), Fd),
+            "attn_norm": norm_init(("layers", "attn_norm"), (L, D)),
+            "wq": dense_init(("layers", "wq"), (L, D, H * Hd), D),
+            "wk": dense_init(("layers", "wk"), (L, D, KV * Hd), D),
+            "wv": dense_init(("layers", "wv"), (L, D, KV * Hd), D),
+            "wo": dense_init(("layers", "wo"), (L, H * Hd, D), H * Hd),
+            "mlp_norm": norm_init(("layers", "mlp_norm"), (L, D)),
+            "w_gate": dense_init(("layers", "w_gate"), (L, D, Fd), D),
+            "w_up": dense_init(("layers", "w_up"), (L, D, Fd), D),
+            "w_down": dense_init(("layers", "w_down"), (L, Fd, D), Fd),
         },
-        "final_norm": norm_init((D,)),
-        "lm_head": dense_init((D, c.vocab_size), D),
+        "final_norm": norm_init(("final_norm",), (D,)),
+        "lm_head": dense_init(("lm_head",), (D, c.vocab_size), D),
     }
 
 

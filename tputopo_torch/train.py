@@ -25,7 +25,6 @@ pipelined and MoE steps come with later slices.
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 
 import torch
@@ -218,45 +217,20 @@ def state_shardings(plan: shardlib.MeshPlan, config: ModelConfig,
 def make_sharded_state(plan: shardlib.MeshPlan, config: ModelConfig, seed: int = 0,
                        lr: float = 3e-4) -> TrainState:
     """This rank's shards of ``make_train_state(config, seed)`` on the plan's
-    device, equal to the slices of that tree bit for bit.  The leaves are
-    drawn one at a time in :func:`~.model.init_params`' order from the same
-    generator, each cut to its block before the next is drawn, so the
-    whole tree is never resident."""
-    c = config
-    _check_supported(c)
-    dev = plan.device
-    pspecs = shardlib.param_specs(plan, c)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    L, D, H, KV, Hd, Fd = (c.n_layers, c.d_model, c.n_heads, c.n_kv_heads,
-                           c.head_dim, c.d_ff)
+    device, equal to the slices of that tree bit for bit: :func:`~.model.init_params`
+    cuts each leaf to its block as it is drawn, so the whole tree is never
+    resident."""
+    pspecs = shardlib.param_specs(plan, config)
 
-    def dense(shape, fan_in, spec):
-        w = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
-        return shardlib.shard_leaf(w.mul_(1.0 / math.sqrt(fan_in)), spec, plan)
+    def cut(path, leaf):
+        spec = pspecs
+        for k in path:
+            spec = spec[k]
+        return shardlib.shard_leaf(leaf, spec, plan)
 
-    def norm(shape, spec):
-        return shardlib.shard_leaf(torch.ones(shape, dtype=torch.float32,
-                                              device=dev), spec, plan)
-
-    ls = pspecs["layers"]
-    params = {  # the dict order is init_params' draw order
-        "embed": dense((c.vocab_size, D), D, pspecs["embed"]),
-        "layers": {
-            "attn_norm": norm((L, D), ls["attn_norm"]),
-            "wq": dense((L, D, H * Hd), D, ls["wq"]),
-            "wk": dense((L, D, KV * Hd), D, ls["wk"]),
-            "wv": dense((L, D, KV * Hd), D, ls["wv"]),
-            "wo": dense((L, H * Hd, D), H * Hd, ls["wo"]),
-            "mlp_norm": norm((L, D), ls["mlp_norm"]),
-            "w_gate": dense((L, D, Fd), D, ls["w_gate"]),
-            "w_up": dense((L, D, Fd), D, ls["w_up"]),
-            "w_down": dense((L, Fd, D), Fd, ls["w_down"]),
-        },
-        "final_norm": norm((D,), pspecs["final_norm"]),
-        "lm_head": dense((D, c.vocab_size), D, pspecs["lm_head"]),
-    }
+    params = init_params(config, seed, device=plan.device, cut=cut)
     return TrainState(params=params, opt_state=make_optimizer(lr).init(params),
-                      step=torch.zeros((), dtype=torch.int32, device=dev))
+                      step=torch.zeros((), dtype=torch.int32, device=plan.device))
 
 
 def sharded_loss_and_grads(plan: shardlib.MeshPlan, params: dict,
