@@ -49,6 +49,20 @@ Between the kernel phases and the forward, ``repairs``: a forward with
 head dim 256 under ``attn_impl="auto"`` (the einsum path, as the kernels
 take H <= 128) and the kernels on view operands.
 
+The serving-and-finetuning slice on one GPU: after ``serve_int4``, on the
+same 32-layer weights, ``spec_generate`` (speculative decoding of one
+sequence, bf16, then an f32 case at 2 layers that must equal greedy
+``generate`` token for token), ``spec_serve`` (the speculative engine and
+the plain one on the same requests) and ``lora_serve`` (a zero adapter
+invisible, a nonzero one against the merged weights' forward, QLoRA over
+int8 against the dequantized twin); after training, ``lora_train`` (the
+adapter's step at the training shape, 8/4/4 launches a step, the frozen
+base unchanged), and in the multi-GPU block its world-1 sharded twin
+(``sharded_lora_world1``, bit for bit); then ``vision`` (the conv
+classifier on the card in bf16) and the CLI's ``decode``, ``serve`` and
+``train-vision`` run in this process, ``train --lora-rank`` beside the
+CLI's subprocesses.
+
 Then the seconds of each phase, one ``kernels`` line, the card's
 ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
@@ -59,8 +73,10 @@ process of ``tp2_gloo_cuda``, started by the script itself.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
+import io
 import json
 import math
 import re
@@ -215,6 +231,44 @@ TP2_CASES = (("tp2", {"dp": 1, "tp": 2}, TRAIN_LAYERS, 1),
 # Head dim 256: Llama-3-8B's width with 16 query heads (8 kv), one layer.
 REPAIR_HEADS = 16
 
+# Speculative decoding over the 32-layer weights: the draft is their first
+# 4 layers, 4 draft tokens a tick; one sequence (prompt 128, 64 new), then
+# the engine on 8 of serve_stream's prompts, 32 new each, no prefix (the
+# speculative engine takes none).  Picks are held to GEN_GAP, as every
+# bf16 path.  At f32 speculation is lossless: 2 layers at full width over
+# the f32 masters (sliced, no copy), draft 1 layer, must give greedy
+# generate's tokens, each pick within SPEC_F32_GAP of the f32 forward's
+# max, f32 rounding over two layers.  Random weights set the acceptance
+# rate: no figure here is a speed result of speculation.
+SPEC_DRAFT_LAYERS, SPEC_GAMMA, SPEC_PROMPT, SPEC_NEW = 4, 4, 128, 64
+SPEC_F32_LAYERS, SPEC_F32_GAP = 2, 1e-3
+SPEC_SERVE_REQUESTS, SPEC_SERVE_NEW = 8, 32
+SPEC_ENGINE = dict(slots=8, max_len=2048, prompt_pad=(128, 512, 1024),
+                   draft_layers=SPEC_DRAFT_LAYERS, gamma=SPEC_GAMMA)
+# LoRA: rank 8 on wq and wv (the reference's default targets), b drawn
+# N(0, 0.02) where the delta must show (tests/test_lora.py:104-105); 4
+# requests of 16 new tokens through SERVE_ENGINE.  QLoRA: an int8 base with
+# an int8 KV cache, against the forward of the dequantized twin (bf16, the
+# compute dtype) with the same adapter: SERVE_INT8_GAP.
+LORA_RANK, LORA_B_STD = 8, 0.02
+LORA_REQUESTS, LORA_PROMPT, LORA_NEW = 4, (16, 512), (16, 16)
+# The adapter's train step at the training shape (TRAIN_LAYERS, [1, 2048],
+# remat "block", lr TRAIN_LR): the base frozen in f32, the adapter alone
+# trained.
+LORA_TRAIN_STEPS = 3
+# The conv classifier on the card in bf16: the reference CLI's run.
+VISION_STEPS, VISION_BATCH = 20, 64
+# The keys the reference CLI prints (tputopo/workloads/__main__.py).
+CLI_KEYS = {
+    "decode": {"batch", "prompt_len", "max_new", "mesh", "decode_tokens_per_s", "wall_s"},
+    "serve": {"requests", "slots", "mesh", "prompt_lens", "prefix_len",
+              "generated_tokens", "decode_steps", "prefix_admits", "tokens_per_s",
+              "wall_s"},
+    "train-vision": {"devices", "mesh", "steps", "first_loss", "last_loss"},
+    "train": {"devices", "mesh", "steps", "resumed_from", "final_step", "preempted",
+              "first_loss", "last_loss"},
+}
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -302,6 +356,16 @@ def card(query: str = "name,power.limit") -> str:
 def card_state() -> str:
     """SM clock, power draw and temperature, sampled beside a window."""
     return card("clocks.sm,power.draw,temperature.gpu")
+
+
+def reset(kernels) -> None:
+    """Set every kernel's launch count to 0."""
+    for k in kernels:
+        k.launches = 0
+
+
+def launch_counts(kernels) -> dict:
+    return {k.name: k.launches for k in kernels}
 
 
 def phase_flash(att, kernel) -> dict:
@@ -442,13 +506,12 @@ def phase_forward(tt, kernels) -> tuple:
     tt.forward(params, tokens, cfg)  # warm-up: cuBLAS handles, allocator
     torch.cuda.synchronize()
 
-    for k in kernels:
-        k.launches = 0
+    reset(kernels)
     t0 = time.perf_counter()
     logits = tt.forward(params, tokens, cfg)
     torch.cuda.synchronize()
     fwd_s = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in kernels}
+    launches = launch_counts(kernels)
 
     check(launches["flash_fwd"] == cfg.n_layers,
           f"forward launched flash_fwd {launches['flash_fwd']} times, "
@@ -486,8 +549,7 @@ def phase_generate(tt, kernels, params, cfg) -> torch.Tensor:
                            generator=torch.Generator(device="cuda").manual_seed(2))
     runs = []
     for _ in range(2):
-        for k in kernels:
-            k.launches = 0
+        reset(kernels)
         t0 = time.perf_counter()
         out = tt.generate(params, prompt, cfg, max_new=new)
         torch.cuda.synchronize()
@@ -497,7 +559,7 @@ def phase_generate(tt, kernels, params, cfg) -> torch.Tensor:
     check(bool(((a >= 0) & (a < cfg.vocab_size)).all()), "generated ids out of range")
     check(bool(torch.equal(a[:, :P], prompt)), "generate changed the prompt")
     check(bool(torch.equal(a, b)), "greedy generate is not deterministic")
-    gen_launches = {k.name: k.launches for k in kernels}
+    gen_launches = launch_counts(kernels)
     # The cached path against the whole forward over the generated tokens.
     full = tt.forward(params, a[:, :-1], cfg)[:, P - 1:]
     picks = a[:, P:]
@@ -526,20 +588,25 @@ def serve_stream(vocab: int, seed: int, n: int, prompt: tuple, new: tuple,
     return prefix, reqs
 
 
-def run_engine(tt, params, cfg, prefix, reqs) -> dict:
+def run_engine(tt, params, cfg, prefix, reqs, make=None) -> dict:
     """One engine serving the stream, every request submitted at once;
-    the host clock from before the prefix's registration to the drained
-    queue.  Time to first token is, per request, from its submit to the
-    streaming callback's first call for it."""
+    the host clock from before the prefix's registration (when there is a
+    prefix) to the drained queue.  Time to first token is, per request,
+    from its submit to the streaming callback's first call for it.
+    ``make(on_tokens)`` builds the engine; by default the plain engine
+    with SERVE_ENGINE's settings."""
     first: dict[int, float] = {}
 
     def on_tokens(rid, toks):
         first.setdefault(rid, time.perf_counter())
 
-    eng = tt.ServingEngine(params, cfg, on_tokens=on_tokens, **SERVE_ENGINE)
+    if make is None:
+        def make(cb):
+            return tt.ServingEngine(params, cfg, on_tokens=cb, **SERVE_ENGINE)
+    eng = make(on_tokens)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    pid = eng.register_prefix(prefix)
+    pid = eng.register_prefix(prefix) if prefix is not None else None
     ids, submitted = [], {}
     for p, m, behind in reqs:
         rid = eng.submit(p, max_new=m, prefix=pid if behind else None)
@@ -615,12 +682,11 @@ def phase_serve(tt, kernels, params, cfg) -> tuple:
     t_phase = time.perf_counter()
     prefix, reqs = serve_stream(cfg.vocab_size, 5, SERVE_REQUESTS, SERVE_PROMPT,
                                 SERVE_NEW, every=3)
-    for k in kernels:
-        k.launches = 0
+    reset(kernels)
     torch.cuda.reset_peak_memory_stats()
     state = card_state()
     runs = [run_engine(tt, params, cfg, prefix, reqs) for _ in range(2)]
-    launches = {k.name: k.launches for k in kernels}
+    launches = launch_counts(kernels)
     peak = torch.cuda.max_memory_allocated() / 1e9
     a, b = runs
     check(a["rows"] == b["rows"], "serve: the two runs gave different tokens")
@@ -729,6 +795,374 @@ def profile_serve(tt, params, cfg, prefix, reqs) -> None:
           "card_state_before": state})
 
 
+def phase_spec_generate(tt, kernels, params, cfg) -> dict:
+    """Speculative decoding of one sequence over the 32-layer weights, bf16:
+    every pick within GEN_GAP of the forward's max, the accounting identity,
+    no flash launch; beside it greedy generate's tokens and time.  Then the
+    f32 case, lossless: 2 layers at full width over the f32 masters, equal
+    to greedy generate token for token, every gap within SPEC_F32_GAP.
+    Returns the flash launches of the bf16 run."""
+    from tputopo_torch.speculative import spec_generate
+
+    t_phase = time.perf_counter()
+    prompt = torch.randint(0, cfg.vocab_size, (1, SPEC_PROMPT), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(9))
+    reset(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, stats = spec_generate(params, prompt, cfg, max_new=SPEC_NEW,
+                               draft_layers=SPEC_DRAFT_LAYERS, gamma=SPEC_GAMMA)
+    torch.cuda.synchronize()
+    spec_s = time.perf_counter() - t0
+    launches = launch_counts(kernels)
+    t0 = time.perf_counter()
+    greedy = tt.generate(params, prompt, cfg, max_new=SPEC_NEW)
+    torch.cuda.synchronize()
+    greedy_s = time.perf_counter() - t0
+    check(tuple(out.shape) == (1, SPEC_PROMPT + SPEC_NEW), f"spec shape {tuple(out.shape)}")
+    check(bool(torch.equal(out[:, :SPEC_PROMPT], prompt)), "spec_generate changed the prompt")
+    vs = picks_vs_forward(tt, params, cfg, [out[0].tolist()], [SPEC_PROMPT])
+    same = int((out[0, SPEC_PROMPT:] == greedy[0, SPEC_PROMPT:]).sum())
+    steps, acc = stats["target_steps"], stats["drafted_accepted"]
+
+    # f32: the masters' first layers, sliced (views), computed in f32.
+    cfg32 = dataclasses.replace(cfg, n_layers=SPEC_F32_LAYERS, compute_dtype=torch.float32)
+    cut = dict(params, layers={k: v[:SPEC_F32_LAYERS] for k, v in params["layers"].items()})
+    out32, stats32 = spec_generate(cut, prompt, cfg32, max_new=SPEC_NEW,
+                                   draft_layers=SPEC_F32_LAYERS - 1, gamma=SPEC_GAMMA)
+    greedy32 = tt.generate(cut, prompt, cfg32, max_new=SPEC_NEW)
+    vs32 = picks_vs_forward(tt, cut, cfg32, [out32[0].tolist()], [SPEC_PROMPT])
+    rec = {"phase": "spec_generate", "model": "llama3_8b", "layers": cfg.n_layers,
+           "compute": "bf16", "draft_layers": SPEC_DRAFT_LAYERS, "gamma": SPEC_GAMMA,
+           "prompt": SPEC_PROMPT, "max_new": SPEC_NEW, **stats,
+           "tokens_per_target_step": SPEC_NEW / steps, "wall_s": spec_s,
+           "generate_wall_s": greedy_s, "tokens_equal_to_generate": same,
+           "launches": launches, **vs, "bound_max_gap": GEN_GAP,
+           "f32": {"layers": SPEC_F32_LAYERS, "draft_layers": SPEC_F32_LAYERS - 1,
+                   **stats32, "equal_to_generate": bool(torch.equal(out32, greedy32)),
+                   **vs32, "bound_max_gap": SPEC_F32_GAP},
+           "note": "random weights: not a speed result of speculation",
+           "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    check(vs["vs_forward_max_gap"] <= GEN_GAP,
+          f"spec_generate: a pick is off the forward's greedy pick: {vs}")
+    check(steps + acc in (SPEC_NEW, SPEC_NEW + 1),
+          f"spec_generate: target_steps {steps} + drafted_accepted {acc} not in "
+          f"{{{SPEC_NEW}, {SPEC_NEW + 1}}}")
+    check(not any(launches.values()), f"spec_generate launched a flash kernel: {launches}")
+    check(rec["f32"]["equal_to_generate"] and vs32["vs_forward_max_gap"] <= SPEC_F32_GAP,
+          f"spec_generate at f32 is not greedy generate: {rec['f32']}")
+    return launches
+
+
+def phase_spec_serve(tt, kernels, params, cfg) -> dict:
+    """The speculative engine and the plain one on the same 8 requests, no
+    prefix: every request its budget, every pick within GEN_GAP of the
+    forward, no flash launch, 0 <= drafted_accepted <= generated; tokens/s,
+    TTFT, target streams and the share of equal tokens for both.  Returns
+    the speculative run's flash launches."""
+    from tputopo_torch.speculative import SpecServingEngine
+
+    t_phase = time.perf_counter()
+    _, stream = serve_stream(cfg.vocab_size, 5, SPEC_SERVE_REQUESTS, SERVE_PROMPT,
+                             (SPEC_SERVE_NEW, SPEC_SERVE_NEW), every=3)
+    reqs = [(p, m, False) for p, m, _ in stream]
+    reset(kernels)
+    spec = run_engine(tt, params, cfg, None, reqs, make=lambda cb: SpecServingEngine(
+        params, cfg, on_tokens=cb, **SPEC_ENGINE))
+    launches = launch_counts(kernels)
+    plain = run_engine(tt, params, cfg, None, reqs)
+    check_rows(spec["rows"], spec["plens"], reqs, None, cfg.vocab_size, "spec_serve")
+    check_rows(plain["rows"], plain["plens"], reqs, None, cfg.vocab_size, "spec_serve plain")
+    vs = picks_vs_forward(tt, params, cfg, spec["rows"], spec["plens"])
+    equal = sum(a == b for ra, rb, n in zip(spec["rows"], plain["rows"], spec["plens"])
+                for a, b in zip(ra[n:], rb[n:]))
+
+    def summary(run):
+        steps = run["metrics"]["decode_steps"]
+        return {"tokens_per_s": run["tokens_per_s"], "wall_s": run["wall_s"],
+                "ttft_p50_s": run["ttft_p50_s"], "ttft_p95_s": run["ttft_p95_s"],
+                "generated": run["generated"], "decode_steps": steps,
+                "tokens_per_target_stream": run["generated"] / steps,
+                "metrics": run["metrics"]}
+
+    accepted = spec["metrics"]["drafted_accepted"]
+    rec = {"phase": "spec_serve", "model": "llama3_8b", "layers": cfg.n_layers,
+           "engine": {k: list(v) if isinstance(v, tuple) else v
+                      for k, v in SPEC_ENGINE.items()},
+           "requests": len(reqs), "max_new": SPEC_SERVE_NEW,
+           "prompt_tokens": sum(spec["plens"]), "spec": summary(spec),
+           "plain": summary(plain), "equal_token_share": equal / spec["generated"],
+           "launches": launches, **vs, "bound_max_gap": GEN_GAP,
+           "note": "random weights: not a speed result of speculation",
+           "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    check(vs["vs_forward_max_gap"] <= GEN_GAP,
+          f"spec_serve: a pick is off the forward's greedy pick: {vs}")
+    check(not any(launches.values()), f"spec_serve launched a flash kernel: {launches}")
+    check(0 <= accepted <= spec["generated"],
+          f"spec_serve: drafted_accepted {accepted} outside [0, {spec['generated']}]")
+    return launches
+
+
+def phase_lora_serve(tt, kernels, params, cfg) -> dict:
+    """LoRA serving over the 32-layer weights, rank LORA_RANK on wq and wv:
+    a zero-b adapter gives the base engine's tokens bit for bit; a nonzero
+    adapter through lora_view, every pick within GEN_GAP of the merged
+    weights' forward; QLoRA (int8 base, int8 KV cache, the same adapter)
+    within SERVE_INT8_GAP of the dequantized twin's forward.  No flash
+    launch.  Returns the launches of the three adapter runs."""
+    from tputopo_torch import lora
+    from tputopo_torch.quant import deq, is_quantized
+
+    t_phase = time.perf_counter()
+    _, stream = serve_stream(cfg.vocab_size, 7, LORA_REQUESTS, LORA_PROMPT, LORA_NEW,
+                             every=2)
+    reqs = [(p, m, False) for p, m, _ in stream]
+    zero = lora.init_lora(cfg, 11, rank=LORA_RANK)
+    adapter = lora.init_lora(cfg, 11, rank=LORA_RANK)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    for ad in adapter["layers"].values():
+        ad["b"].normal_(0.0, LORA_B_STD, generator=gen)
+
+    def serve(tree, scfg):
+        return run_engine(tt, tree, scfg, None, reqs, make=lambda cb: tt.ServingEngine(
+            tree, scfg, on_tokens=cb, **SERVE_ENGINE))
+
+    base_run = serve(params, cfg)
+    reset(kernels)
+    zero_run = serve(lora.lora_view(params, zero), cfg)
+    view_run = serve(lora.lora_view(params, adapter), cfg)
+    check_rows(view_run["rows"], view_run["plens"], reqs, None, cfg.vocab_size, "lora_serve")
+    merged = lora.merge_lora(params, adapter)
+    vs = picks_vs_forward(tt, merged, cfg, view_run["rows"], view_run["plens"])
+    del merged
+    qcfg = dataclasses.replace(cfg, kv_dtype="int8")
+    qbase = tt.quantize_params(params, bits=8)
+    q_run = serve(lora.lora_view(qbase, adapter), qcfg)
+    launches = launch_counts(kernels)
+    check_rows(q_run["rows"], q_run["plens"], reqs, None, cfg.vocab_size, "lora_serve int8")
+
+    def twin(t):
+        """The int8 tree dequantized in f32 and held at the compute dtype,
+        to which the forward casts every matmul weight: its forward is an
+        f32 twin's.  Stacked leaves go one layer at a time (an f32 copy of
+        w_gate alone is 7.5 GB)."""
+        if not is_quantized(t):
+            return {k: twin(v) for k, v in t.items()} if isinstance(t, dict) else t
+        q = t["int8"]
+        if q.dim() < 3:
+            return deq(t, torch.float32).to(cfg.compute_dtype)
+        out = torch.empty(q.shape, dtype=cfg.compute_dtype, device=q.device)
+        for i in range(q.shape[0]):
+            out[i] = deq({k: v[i] for k, v in t.items()}, torch.float32)
+        return out
+
+    dq = twin(qbase)
+    del qbase
+    vs_q = picks_vs_forward(tt, lora.lora_view(dq, adapter), cfg, q_run["rows"],
+                            q_run["plens"])
+    del dq
+    rec = {"phase": "lora_serve", "model": "llama3_8b", "layers": cfg.n_layers,
+           "rank": LORA_RANK, "targets": list(lora.DEFAULT_TARGETS),
+           "b_std": LORA_B_STD, "requests": len(reqs),
+           "zero_b_equals_base": zero_run["rows"] == base_run["rows"],
+           "tokens_per_s": {"base": base_run["tokens_per_s"],
+                            "zero_b": zero_run["tokens_per_s"],
+                            "adapter": view_run["tokens_per_s"],
+                            "qlora_int8": q_run["tokens_per_s"]},
+           "adapter_vs_merged": {**vs, "bound_max_gap": GEN_GAP},
+           "qlora_vs_dequantized_twin": {**vs_q, "bound_max_gap": SERVE_INT8_GAP},
+           "launches": launches, "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    check(rec["zero_b_equals_base"], "lora_serve: a zero-b adapter changed the tokens")
+    check(vs["vs_forward_max_gap"] <= GEN_GAP,
+          f"lora_serve: a pick is off the merged weights' forward: {vs}")
+    check(vs_q["vs_forward_max_gap"] <= SERVE_INT8_GAP,
+          f"lora_serve: a QLoRA pick is off the dequantized twin's forward: {vs_q}")
+    check(not any(launches.values()), f"lora_serve launched a flash kernel: {launches}")
+    return launches
+
+
+def lora_setup(tt):
+    """The adapter's training shape: the base at TRAIN_LAYERS from seed 0
+    (f32, frozen) and the tokens of phase train.  The adapter is drawn
+    from seed 1."""
+    cfg = dataclasses.replace(tt.ModelConfig.llama3_8b(), n_layers=TRAIN_LAYERS)
+    base = tt.init_params(cfg, 0)
+    tokens = torch.randint(0, cfg.vocab_size, (1, TRAIN_SEQ), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(3))
+    return cfg, base, tokens
+
+
+def phase_lora_train(tt, kernels) -> tuple:
+    """The adapter's step at the training shape: step 1's loss equals the
+    base's loss_fn bit for bit (b = 0), the loss falls over
+    LORA_TRAIN_STEPS steps, 8/4/4 launches each step, the frozen base's
+    leaf sums unchanged bit for bit.  Returns (launches of the last step,
+    (step 1's loss, the state's fingerprint after it))."""
+    from tputopo_torch import lora
+    from tputopo_torch import train as tr
+
+    cfg, base, tokens = lora_setup(tt)
+    adapter = lora.init_lora(cfg, 1, rank=LORA_RANK)
+    state = tr.TrainState(params=adapter, opt_state=tr.make_optimizer(TRAIN_LR).init(adapter),
+                          step=torch.zeros((), dtype=torch.int32, device="cuda"))
+    before = leaf_sums(base)
+    with torch.no_grad():
+        base_loss = tr.loss_fn(base, tokens, cfg).item()
+    want = {"flash_fwd": 2 * TRAIN_LAYERS, "flash_bwd_dq": TRAIN_LAYERS,
+            "flash_bwd_dkv": TRAIN_LAYERS}
+    losses, step_ms, first = [], [], None
+    torch.cuda.reset_peak_memory_stats()
+    state_before = card_state()
+    for i in range(LORA_TRAIN_STEPS):
+        reset(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = lora.lora_train_step(state, base, tokens, cfg, lr=TRAIN_LR)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = launch_counts(kernels)
+        check(launches == want, f"lora step launched {launches}, want {want}")
+        losses.append(loss.item())
+        if i == 0:
+            first = (loss.item(), fingerprint(state))
+    after = leaf_sums(base)
+    rec = {"phase": "lora_train", "model": "llama3_8b", "layers": TRAIN_LAYERS,
+           "tokens": [1, TRAIN_SEQ], "remat": cfg.remat, "lr": TRAIN_LR,
+           "rank": LORA_RANK, "targets": list(lora.DEFAULT_TARGETS),
+           "adapter_params": sum(p.numel() for p in tr._leaves(state.params)),
+           "base_params": sum(p.numel() for p in tr._leaves(base)),
+           "losses": losses, "base_loss_fn": base_loss,
+           "step1_equals_base_loss": losses[0] == base_loss,
+           "base_unchanged": after == before,
+           "base_requires_grad": any(p.requires_grad for p in tr._leaves(base)),
+           "step_ms": step_ms, "launches_per_step": launches,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "card_state_before": state_before}
+    emit(rec)
+    check(all(map(math.isfinite, losses)), f"lora loss not finite: {losses}")
+    check(rec["step1_equals_base_loss"],
+          f"lora step 1's loss {losses[0]} is not the base's {base_loss}")
+    check(losses[-1] < losses[0], f"lora loss did not fall: {losses}")
+    check(rec["base_unchanged"] and not rec["base_requires_grad"],
+          "lora training wrote or differentiated the frozen base")
+    emit(device_profile("lora_train_step", lambda: lora.lora_train_step(
+        state, base, tokens, cfg, lr=TRAIN_LR)))
+    return launches, first
+
+
+def phase_sharded_lora_world1(tt, kernels, first) -> dict:
+    """make_sharded_lora_state's layout and one make_sharded_lora_train_step
+    on {dp: 1, tp: 1} over the world-1 NCCL group, from phase lora_train's
+    seeds: the loss and the state's fingerprint equal lora_train_step's
+    bit for bit.  Returns its launches."""
+    from tputopo_torch import lora
+    from tputopo_torch import sharding as sh
+
+    cfg, base, tokens = lora_setup(tt)
+    plan = sh.build_mesh({"dp": 1, "tp": 1}, device="cuda")
+    sharded = lora.make_sharded_lora_state(plan, cfg, 1, rank=LORA_RANK, lr=TRAIN_LR)
+    step = lora.make_sharded_lora_train_step(plan, cfg, sharded.params, lr=TRAIN_LR)
+    reset(kernels)
+    t0 = time.perf_counter()
+    sharded, loss = step(sharded, base, sh.local_batch(plan, tokens))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts(kernels)
+    got = fingerprint(sharded)
+    ref_loss, ref = first
+    diff = sorted(n for n in ref if got[n] != ref[n])
+    rec = {"phase": "sharded_lora_world1", "layers": TRAIN_LAYERS, "mesh": plan.axes,
+           "backend": "nccl", "step_ms": step_ms, "launches_per_step": launches,
+           "loss": loss.item(), "lora_train_step_loss": ref_loss,
+           "leaves_compared": len(ref), "leaves_differing": diff}
+    emit(rec)
+    check(loss.item() == ref_loss and not diff,
+          f"world-1 sharded lora step differs from lora_train_step: {rec}")
+    return launches
+
+
+def phase_vision(tt) -> None:
+    """train_vision on the card in bf16 (the reference CLI's run): the loss
+    finite and the last below the first; then the step's time on the same
+    batch, after warm-up."""
+    from tputopo_torch import vision as tv
+
+    cfg = tv.VisionConfig()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = tv.train_vision(None, cfg, steps=VISION_STEPS, batch=VISION_BATCH)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    params = tv.init_vision_params(cfg, 0)
+    step, opt = tv.make_vision_train_step(None, cfg)
+    opt_state = opt.init(params)
+    images, labels = tv.synthetic_batch(cfg, VISION_BATCH, 0)
+    for _ in range(3):
+        step(params, opt_state, images, labels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(VISION_STEPS):
+        step(params, opt_state, images, labels)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / VISION_STEPS
+    rec = {"phase": "vision", "config": {"image_size": cfg.image_size,
+                                         "widths": list(cfg.widths),
+                                         "d_hidden": cfg.d_hidden, "compute": "bf16"},
+           "steps": VISION_STEPS, "batch": VISION_BATCH, "losses": losses,
+           "train_vision_wall_s": wall, "step_ms": step_ms}
+    emit(rec)
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+          f"vision: loss not finite or not falling: {losses}")
+
+
+def cli_in_process(argv) -> dict:
+    """``python -m tputopo_torch <argv>`` in this process, stdout and stderr
+    captured: its exit code, last JSON line and seconds.  Each run joins and
+    leaves its own world-1 group."""
+    from tputopo_torch.__main__ import main as cli_main
+
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli_main(list(argv))
+    lines = [ln for ln in out.getvalue().splitlines() if ln.strip()]
+    return {"argv": list(argv), "rc": rc, "seconds": time.perf_counter() - t0,
+            "json": json.loads(lines[-1]) if rc == 0 and lines else None,
+            "stderr_tail": err.getvalue()[-1500:]}
+
+
+CLI_IN_PROCESS = {
+    "decode_int8": ["decode", "--int8"],
+    "serve_spec": ["serve", "--spec-draft-layers", "2"],
+    "serve_int4_prefix": ["serve", "--int4", "--prefix-len", "16"],
+    "train_vision": ["train-vision", "--steps", "5"],
+    # validation exits 2 before any device work
+    "serve_spec_prefix": ["serve", "--spec-draft-layers", "2", "--prefix-len", "8"],
+    "train_lora_pp2": ["train", "--lora-rank", "4", "--pp", "2"],
+}
+
+
+def phase_cli_single_gpu() -> dict:
+    runs = {name: cli_in_process(argv) for name, argv in CLI_IN_PROCESS.items()}
+    emit({"phase": "cli_single_gpu", "runs": runs})
+    for name, run in runs.items():
+        want = 2 if name in ("serve_spec_prefix", "train_lora_pp2") else 0
+        check(run["rc"] == want, f"cli {name} exited {run['rc']}, want {want}: "
+                                 f"{run['stderr_tail']}")
+        if want:
+            continue
+        keys = CLI_KEYS[run["argv"][0]] | ({"drafted_accepted"} if name == "serve_spec"
+                                           else set())
+        check(set(run["json"]) == keys, f"cli {name}: keys {sorted(run['json'])}, "
+                                        f"want {sorted(keys)}")
+    check(runs["train_vision"]["json"]["last_loss"] < runs["train_vision"]["json"]["first_loss"],
+          f"cli train-vision: loss did not fall: {runs['train_vision']['json']}")
+    return runs
+
+
 def phase_train(tt, kernels) -> tuple:
     """Llama-3-8B width, 4 layers, tokens [1, 2048]: one step's loss and
     grads through the kernels against the einsum path, then TRAIN_STEPS
@@ -778,14 +1212,13 @@ def phase_train(tt, kernels) -> tuple:
     state_before = card_state()
     first = None
     for i in range(TRAIN_STEPS):
-        for k in kernels:
-            k.launches = 0
+        reset(kernels)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, loss = tt.train_step(state, tokens, cfg, lr=TRAIN_LR)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
-        launches = {k.name: k.launches for k in kernels}
+        launches = launch_counts(kernels)
         check(launches == want, f"train step launched {launches}, want {want}")
         losses.append(loss.item())
         if i == 0:  # what the sharded step must reproduce from the same seed
@@ -816,8 +1249,7 @@ def phase_remat(kernels, state, cfg, tokens) -> None:
     rec = {"phase": "remat", "layers": L, "tokens": list(tokens.shape)}
     for policy, n_fwd in want.items():
         pcfg = dataclasses.replace(cfg, remat=policy)
-        for k in kernels:
-            k.launches = 0
+        reset(kernels)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -825,7 +1257,7 @@ def phase_remat(kernels, state, cfg, tokens) -> None:
         torch.cuda.synchronize()
         rec[policy] = {"loss": loss.item(), "ms": (time.perf_counter() - t0) * 1e3,
                        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-                       "launches": {k.name: k.launches for k in kernels}}
+                       "launches": launch_counts(kernels)}
         del grads
         check(rec[policy]["launches"] == {"flash_fwd": n_fwd, "flash_bwd_dq": L,
                                           "flash_bwd_dkv": L},
@@ -836,20 +1268,21 @@ def phase_remat(kernels, state, cfg, tokens) -> None:
               f"remat={policy} changed the loss: {rec}")
 
 
-def fingerprint(state) -> dict:
-    """A float64 sum of every leaf of a TrainState (params, both AdamW
-    moments, the count, the step), by dotted name: two states with equal
-    fingerprints computed by the same code are taken as equal."""
+def leaf_sums(tree, prefix: str = "") -> dict:
+    """A float64 sum of every leaf of a tree of tensors, by dotted name."""
     from tputopo_torch import train as tr
 
-    out = {}
-    for part, tree in (("params", state.params), ("mu", state.opt_state.mu),
-                       ("nu", state.opt_state.nu)):
-        for name, leaf in zip(tr._leaf_names(tree), tr._leaves(tree)):
-            out[f"{part}.{name}"] = torch.sum(leaf, dtype=torch.float64).item()
-    out["count"] = int(state.opt_state.count)
-    out["step"] = int(state.step)
-    return out
+    return {prefix + name: torch.sum(leaf, dtype=torch.float64).item()
+            for name, leaf in zip(tr._leaf_names(tree), tr._leaves(tree))}
+
+
+def fingerprint(state) -> dict:
+    """The leaf sums of a TrainState (params, both AdamW moments) with its
+    count and step: two states with equal fingerprints computed by the
+    same code are taken as equal."""
+    return {**leaf_sums(state.params, "params."), **leaf_sums(state.opt_state.mu, "mu."),
+            **leaf_sums(state.opt_state.nu, "nu."), "count": int(state.opt_state.count),
+            "step": int(state.step)}
 
 
 def _views(shape, gen, dtype):
@@ -881,10 +1314,9 @@ def phase_repairs(tt, att, kernels) -> None:
     params = tt.init_params(cfg, 0)
     tokens = torch.randint(0, cfg.vocab_size, (1, TRAIN_SEQ), device="cuda",
                            generator=torch.Generator(device="cuda").manual_seed(7))
-    for k in kernels:
-        k.launches = 0
+    reset(kernels)
     logits = tt.forward(params, tokens, cfg)
-    launches = {k.name: k.launches for k in kernels}
+    launches = launch_counts(kernels)
     ref = tt.forward(params, tokens, dataclasses.replace(cfg, attn_impl="einsum"))
     torch.cuda.synchronize()
     rec = {"phase": "repairs", "head_dim_256": {
@@ -980,13 +1412,12 @@ def phase_sharded_train_world1(tt, kernels, tokens, first) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     step = tr.make_sharded_train_step(plan, cfg, lr=TRAIN_LR)
-    for k in kernels:
-        k.launches = 0
+    reset(kernels)
     t0 = time.perf_counter()
     state, loss = step(state, sh.local_batch(plan, tokens))
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3
-    launches = {k.name: k.launches for k in kernels}
+    launches = launch_counts(kernels)
     got = fingerprint(state)
     ref_loss, ref = first
     diff = sorted(n for n in ref if got[n] != ref[n])
@@ -1041,14 +1472,13 @@ def tp2_rank_main(rank: int, workdir: str) -> int:
         state = tr.make_sharded_state(plan, cfg, 0, lr=TRAIN_LR)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
-        for k in _kernels.KERNELS:
-            k.launches = 0
+        reset(_kernels.KERNELS)
         t0 = time.perf_counter()
         state, loss = tr.make_sharded_train_step(plan, cfg, lr=TRAIN_LR)(
             state, sh.local_batch(plan, tokens))
         torch.cuda.synchronize()
         step_s = time.perf_counter() - t0
-        launches = {k.name: k.launches for k in _kernels.KERNELS}
+        launches = launch_counts(_kernels.KERNELS)
         n_local = sum(p.numel() for p in tr._leaves(state.params))
         names = tr._leaf_names(state.params)
         specs = tr._leaves(sh.param_specs(plan, cfg))
@@ -1085,15 +1515,20 @@ def tp2_rank_main(rank: int, workdir: str) -> int:
 
 
 def run_cli() -> dict:
-    """``python -m tputopo_torch allreduce --topology h100:1`` and ``train
-    --steps 3 --ckpt-dir D`` as subprocesses at the same time, then
-    ``train --steps 2 --ckpt-dir D``, resumed from the first run's
-    checkpoint.  Returns each run's exit code, last stdout line and
-    seconds."""
+    """``python -m tputopo_torch allreduce --topology h100:1``, ``train
+    --steps 3 --ckpt-dir D`` and ``train --lora-rank 4 --steps 3
+    --ckpt-dir D2`` as subprocesses at the same time, then both trainings
+    for 2 steps more, resumed from their checkpoints.  Returns each run's
+    exit code, last stdout line and seconds."""
     ckpt = tempfile.mkdtemp(prefix="tputopo_cli_")
+    lora_ckpt = str(Path(ckpt, "adapter"))
     runs = [{"allreduce": ["allreduce", "--topology", "h100:1"],
-             "train": ["train", "--steps", "3", "--ckpt-dir", ckpt]},
-            {"train_resume": ["train", "--steps", "2", "--ckpt-dir", ckpt]}]
+             "train": ["train", "--steps", "3", "--ckpt-dir", ckpt],
+             "train_lora": ["train", "--lora-rank", "4", "--steps", "3",
+                            "--ckpt-dir", lora_ckpt]},
+            {"train_resume": ["train", "--steps", "2", "--ckpt-dir", ckpt],
+             "train_lora_resume": ["train", "--lora-rank", "4", "--steps", "2",
+                                   "--ckpt-dir", lora_ckpt]}]
     out = {}
     try:
         for batch in runs:
@@ -1182,12 +1617,16 @@ def check_cli(cli: dict) -> None:
     emit({"phase": "cli", "runs": cli})
     for name, run in cli.items():
         check(run["rc"] == 0, f"cli {name} exited {run['rc']}: {run['stderr_tail']}")
-    ar, tr1, tr2 = cli["allreduce"]["json"], cli["train"]["json"], cli["train_resume"]["json"]
+    ar = cli["allreduce"]["json"]
     check(ar["topology"] == "h100:1" and ar["predicted_gbps"] == 0.0
           and ar["measured_n_devices"] == 1, f"cli allreduce: {ar}")
-    check(tr1["final_step"] == 3 and tr1["last_loss"] < tr1["first_loss"],
-          f"cli train: loss did not fall: {tr1}")
-    check(tr2["resumed_from"] == 3 and tr2["final_step"] == 5, f"cli resume: {tr2}")
+    for name in ("train", "train_lora"):
+        tr1, tr2 = cli[name]["json"], cli[f"{name}_resume"]["json"]
+        check(set(tr1) == set(tr2) == CLI_KEYS["train"], f"cli {name}: keys {sorted(tr1)}")
+        check(tr1["final_step"] == 3 and tr1["last_loss"] < tr1["first_loss"],
+              f"cli {name}: loss did not fall: {tr1}")
+        check(tr2["resumed_from"] == 3 and tr2["final_step"] == 5,
+              f"cli {name} resume: {tr2}")
 
 
 def device_profile(path: str, fn, top: int = 12) -> dict:
@@ -1263,6 +1702,12 @@ def main() -> int:
     timed("profile_serve", profile_serve, tt, params, cfg, prefix, reqs)
     timed("serve_int8", phase_serve_int8, tt, params, cfg, stream)
     timed("serve_int4", phase_serve_int4, tt, params, cfg)
+    spec_launches = timed("spec_generate", phase_spec_generate, tt, _kernels.KERNELS,
+                          params, cfg)
+    spec_serve_launches = timed("spec_serve", phase_spec_serve, tt, _kernels.KERNELS,
+                                params, cfg)
+    lora_serve_launches = timed("lora_serve", phase_lora_serve, tt, _kernels.KERNELS,
+                                params, cfg)
     # The 32-layer parameters (32.1 GB) and the training state (~31 GB)
     # are never resident together.
     del params
@@ -1278,6 +1723,9 @@ def main() -> int:
     del state
     gc.collect()
     torch.cuda.empty_cache()
+    lora_launches, lora_first = timed("lora_train", phase_lora_train, tt, _kernels.KERNELS)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # The multi-GPU slice.  The rank processes of tp2_gloo_cuda start now
     # and wait until this process holds none of its states; the CLI's runs
@@ -1290,6 +1738,10 @@ def main() -> int:
                                  _kernels.KERNELS, ttokens, first)
         gc.collect()
         torch.cuda.empty_cache()
+        sharded_lora_launches = timed("sharded_lora_world1", phase_sharded_lora_world1, tt,
+                                      _kernels.KERNELS, lora_first)
+        gc.collect()
+        torch.cuda.empty_cache()
         with ThreadPoolExecutor(max_workers=1) as pool:
             cli = pool.submit(timed, "cli", run_cli)
             tp2_launches = timed("tp2_gloo_cuda", phase_tp2_gloo_cuda, tp2)
@@ -1300,13 +1752,26 @@ def main() -> int:
         shutdown()
     seconds["multi_gpu_slice"] = time.perf_counter() - t_slice
     seconds["multi_gpu_slice_and_repairs"] = seconds["multi_gpu_slice"] + seconds["repairs"]
+    # The CLI's single-GPU subcommands in this process: each joins and
+    # leaves its own world-1 group, so they run after the slice's group is
+    # gone.
+    timed("vision", phase_vision, tt)
+    timed("cli_single_gpu", phase_cli_single_gpu)
+    seconds["serve_finetune_slice"] = sum(seconds[k] for k in (
+        "spec_generate", "spec_serve", "lora_serve", "lora_train", "sharded_lora_world1",
+        "vision", "cli_single_gpu"))
     for e in entries:
         e["launches"] = step_launches[e["name"]]  # per train step, the main path
         e["launches_by_path"] = {"forward": fwd_launches[e["name"]],
                                  "train_step": step_launches[e["name"]],
                                  "serve": serve_launches[e["name"]],
                                  "sharded_train_step": sharded_launches[e["name"]],
-                                 "tp2_rank": tp2_launches[e["name"]]}
+                                 "tp2_rank": tp2_launches[e["name"]],
+                                 "lora_train_step": lora_launches[e["name"]],
+                                 "sharded_lora_step": sharded_lora_launches[e["name"]],
+                                 "spec_generate": spec_launches[e["name"]],
+                                 "spec_serve": spec_serve_launches[e["name"]],
+                                 "lora_serve": lora_serve_launches[e["name"]]}
     emit({"phase": "seconds", **seconds})
     emit({"kernels": entries})
     print(name, flush=True)

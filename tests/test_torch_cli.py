@@ -1,5 +1,6 @@
-"""``python -m tputopo_torch`` (its ``allreduce`` and ``train``
-subcommands) on the CPU: the reference CLI's JSON keys and exit codes,
+"""``python -m tputopo_torch`` on the CPU: the reference CLI's JSON keys
+and exit codes for every subcommand (``allreduce``, ``train`` with and
+without ``--lora-rank``, ``decode``, ``serve`` and ``train-vision``),
 resume, a token corpus, a 2-process gang, and SIGTERM preemption."""
 
 import json
@@ -28,6 +29,16 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TRAIN_KEYS = {"devices", "mesh", "steps", "resumed_from", "final_step", "preempted",
               "first_loss", "last_loss"}
 SMALL = ["--device", "cpu", "--seq", "32", "--batch", "2"]
+# The keys the reference's decode, serve and train-vision print
+# (tputopo/workloads/__main__.py:316-321, 407-422, 438-441).
+DECODE_KEYS = {"batch", "prompt_len", "max_new", "mesh", "decode_tokens_per_s", "wall_s"}
+SERVE_KEYS = {"requests", "slots", "mesh", "prompt_lens", "prefix_len",
+              "generated_tokens", "decode_steps", "prefix_admits", "tokens_per_s",
+              "wall_s"}
+VISION_KEYS = {"devices", "mesh", "steps", "first_loss", "last_loss"}
+ONE_DEVICE = {"pp": 1, "dp": 1, "sp": 1, "ep": 1, "tp": 1}
+SERVE = ["serve", "--device", "cpu", "--requests", "5", "--slots", "2",
+         "--prompt-len", "16", "--max-new", "4"]
 
 
 @pytest.fixture(autouse=True)
@@ -92,10 +103,77 @@ def test_train_on_a_token_corpus(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [["--experts", "4"], ["--ep", "2"], ["--pp", "2"],
-                                   ["--sp", "2"], ["--lora-rank", "4"]])
+                                   ["--sp", "2"], ["--lora-rank", "4", "--pp", "2"]])
 def test_unported_flags_exit_2_naming_the_later_slice(flags, capsys):
     assert main(["train", *SMALL, *flags]) == 2
     assert "not ported yet" in capsys.readouterr().err
+
+
+def test_train_lora_rank_trains_the_adapter_and_resumes(tmp_path, capsys):
+    ckpt = str(tmp_path / "adapter")
+    assert main(["train", *SMALL, "--lora-rank", "4", "--steps", "3",
+                 "--ckpt-dir", ckpt]) == 0
+    first = _json(capsys.readouterr().out)
+    assert set(first) == TRAIN_KEYS and first["mesh"] == ONE_DEVICE
+    assert first["final_step"] == 3 and first["last_loss"] < first["first_loss"]
+    assert main(["train", *SMALL, "--lora-rank", "4", "--steps", "2",
+                 "--ckpt-dir", ckpt, "--accum", "2"]) == 0
+    second = _json(capsys.readouterr().out)
+    assert second["resumed_from"] == 3 and second["final_step"] == 5
+
+
+@pytest.mark.parametrize("flags", [[], ["--int8"], ["--int4"]])
+def test_decode_prints_the_reference_keys(flags, capsys):
+    assert main(["decode", "--device", "cpu", "--batch", "2", "--prompt-len", "8",
+                 "--max-new", "4", *flags]) == 0
+    got = _json(capsys.readouterr().out)
+    assert set(got) == DECODE_KEYS and got["mesh"] == ONE_DEVICE
+    assert got["batch"] == 2 and got["decode_tokens_per_s"] > 0
+
+
+@pytest.mark.parametrize("flags,extra", [
+    ([], set()),
+    (["--spec-draft-layers", "2", "--spec-gamma", "3"], {"drafted_accepted"}),
+    (["--int8"], set()),
+    (["--int4", "--prefix-len", "8"], set()),
+    (["--prefill-chunk", "8", "--steps-per-tick", "2"], set()),
+])
+def test_serve_prints_the_reference_keys(flags, extra, capsys):
+    assert main([*SERVE, *flags]) == 0
+    got = _json(capsys.readouterr().out)
+    assert set(got) == SERVE_KEYS | extra and got["mesh"] == ONE_DEVICE
+    assert got["generated_tokens"] == 5 * 4
+    if "--prefix-len" in flags:
+        assert got["prefix_len"] == 8 and got["prefix_admits"] == 5
+    if extra:
+        assert 0 <= got["drafted_accepted"] <= got["generated_tokens"]
+
+
+def test_serve_stream_emits_every_token_before_the_summary(capsys):
+    assert main([*SERVE, "--stream"]) == 0
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines() if ln.strip()]
+    summary, records = lines[-1], lines[:-1]
+    assert summary["stream"] is True and set(summary) == SERVE_KEYS | {"stream"}
+    assert sum(len(r["tokens"]) for r in records) == summary["generated_tokens"]
+
+
+@pytest.mark.parametrize("flags,msg", [
+    (["--spec-draft-layers", "2", "--prefix-len", "8"], "incompatible with --prefix-len"),
+    (["--spec-draft-layers", "2", "--prefill-chunk", "8"], "--prefill-chunk"),
+    (["--spec-draft-layers", "2", "--steps-per-tick", "2"], "--steps-per-tick"),
+    (["--spec-draft-layers", "4"], "must be in (0, 4)"),
+    (["--spec-draft-layers", "1", "--spec-gamma", "0"], "--spec-gamma must be >= 1"),
+])
+def test_serve_validation_exits_2(flags, msg, capsys):
+    assert main([*SERVE, *flags]) == 2
+    assert msg in capsys.readouterr().err
+
+
+def test_train_vision_prints_the_reference_keys(capsys):
+    assert main(["train-vision", "--device", "cpu", "--steps", "3", "--batch", "8"]) == 0
+    got = _json(capsys.readouterr().out)
+    assert set(got) == VISION_KEYS and got["mesh"] == ONE_DEVICE
+    assert got["devices"] == 1 and got["last_loss"] < got["first_loss"]
 
 
 def test_bad_configuration_exits_2(monkeypatch, capsys):

@@ -103,12 +103,15 @@ def test_unported_features_raise():
     tokens = torch.zeros((1, 16), dtype=torch.long)
     with pytest.raises(NotImplementedError, match="MoE"):
         tm.init_params(dataclasses.replace(tcfg, moe=object()), device="cpu")
+    # LoRA leaves are ported (tests/test_torch_lora.py): a zero-b adapter
+    # leaves the forward as it is
     wq = params["layers"]["wq"]
-    lora = {"lora_base": wq, "lora_a": torch.zeros(wq.shape[:-1] + (2,)),
+    lora = {"lora_base": wq, "lora_a": torch.ones(wq.shape[:-1] + (2,)),
             "lora_b": torch.zeros((wq.shape[0], 2, wq.shape[-1])),
             "lora_scale": torch.ones(wq.shape[0])}
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        tm.forward(dict(params, layers=dict(params["layers"], wq=lora)), tokens, tcfg)
+    assert torch.equal(
+        tm.forward(dict(params, layers=dict(params["layers"], wq=lora)), tokens, tcfg),
+        tm.forward(params, tokens, tcfg))
     with pytest.raises(ValueError, match="unknown remat"):
         tm.forward(params, tokens, dataclasses.replace(tcfg, remat="bogus"))
 

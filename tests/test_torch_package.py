@@ -40,7 +40,25 @@ def test_port_imports_no_jax_and_nothing_of_tputopo():
     assert {"tputopo_torch.quant", "tputopo_torch.serving", "tputopo_torch.distributed",
             "tputopo_torch.collective", "tputopo_torch.linkmodel",
             "tputopo_torch.validate", "tputopo_torch.sharding", "tputopo_torch.data",
-            "tputopo_torch.checkpoint", "tputopo_torch.__main__"} <= set(got["port"])
+            "tputopo_torch.checkpoint", "tputopo_torch.__main__",
+            "tputopo_torch.speculative", "tputopo_torch.lora",
+            "tputopo_torch.vision"} <= set(got["port"])
+
+
+@pytest.mark.parametrize("module", ["speculative", "lora", "vision"])
+def test_port_modules_expose_the_reference_public_names(module):
+    """Every public name of the reference module (read from its source, so
+    JAX is not imported) is in the port's module."""
+    import ast
+    import importlib
+
+    src = (REPO / "tputopo" / "workloads" / f"{module}.py").read_text()
+    names = {n.name for n in ast.parse(src).body
+             if isinstance(n, (ast.FunctionDef, ast.ClassDef)) and not n.name.startswith("_")}
+    names |= {t.id for n in ast.parse(src).body if isinstance(n, ast.Assign)
+              for t in n.targets if isinstance(t, ast.Name) and not t.id.startswith("_")}
+    port = importlib.import_module(f"tputopo_torch.{module}")
+    assert names and not sorted(n for n in names if not hasattr(port, n))
 
 
 def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):
@@ -54,6 +72,14 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):
         convert.params_from_numpy({"w": np.zeros(2, np.float32)})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serving.init_state(cfg, 1, 8)
+    from tputopo_torch import lora, vision
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lora.init_lora(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        vision.init_vision_params(vision.VisionConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        vision.synthetic_batch(vision.VisionConfig(), 2, 0)
     params = tt.init_params(cfg, device="cpu")
     assert params["embed"].device.type == "cpu"
     assert model.resolve_device("cpu") == torch.device("cpu")

@@ -130,9 +130,11 @@ def test_qdot_rejects_stacked_int4_and_lora():
     x = torch.zeros(2, 64)
     with pytest.raises(ValueError, match="scan-slice"):
         tq.qdot(x, stacked)
-    lora = {"lora_base": torch.zeros(64, 32), "lora_a": torch.zeros(64, 2),
+    # a LoRA leaf takes the same rule for its base (its arm is held
+    # against the reference in test_torch_lora.py)
+    lora = {"lora_base": stacked, "lora_a": torch.zeros(64, 2),
             "lora_b": torch.zeros(2, 32), "lora_scale": torch.ones(())}
-    with pytest.raises(NotImplementedError, match="LoRA"):
+    with pytest.raises(ValueError, match="scan-slice"):
         tq.qdot(x, lora)
 
 

@@ -198,6 +198,69 @@ def checkpoint(rank, world, d, args):
             "step_after": int(restored.step), "loss_after": loss.item()}
 
 
+@job
+def lora_sharded(rank, world, d, args):
+    """Two LoRA steps per case from the converted base and adapter in
+    inputs.npz; the adapter and both moments gathered whole, the base
+    shards checked unchanged, the losses."""
+    from tputopo_torch import lora as tl
+    from tputopo_torch import sharding as sh
+    from tputopo_torch import train as tr
+    from tputopo_torch.convert import lora_from_numpy, sharded_params_from_numpy
+
+    _init(rank, world, d)
+    cfg = _tiny()
+    inputs = np.load(d / "inputs.npz")
+    tokens = torch.from_numpy(inputs["tokens"])
+    base_np = _nest({k[2:]: inputs[k] for k in inputs.files if k.startswith("p.")})
+    adapter_np = _nest({k[2:]: inputs[k] for k in inputs.files if k.startswith("a.")})
+    out, arrays = {}, {}
+    for case in args["cases"]:
+        name = case["name"]
+        plan = sh.build_mesh(case["axes"], device="cpu")
+        base = sharded_params_from_numpy(base_np, plan, cfg)
+        before = [t.clone() for t in tr._leaves(base)]
+        full = lora_from_numpy(adapter_np, device="cpu")
+        specs = tl.lora_shardings(plan, full, cfg)
+        adapter = sh.shard_tree(full, specs, plan)
+        state = tr.TrainState(params=adapter,
+                              opt_state=tr.make_optimizer(args["lr"]).init(adapter),
+                              step=torch.zeros((), dtype=torch.int32))
+        step = tl.make_sharded_lora_train_step(plan, cfg, adapter, lr=args["lr"],
+                                               accum_steps=case["accum"])
+        losses = []
+        for _ in range(args["steps"]):
+            state, loss = step(state, base, sh.local_batch(plan, tokens))
+            losses.append(loss.item())
+        for part, tree in (("params", state.params), ("mu", state.opt_state.mu),
+                           ("nu", state.opt_state.nu)):
+            whole = sh.gather_tree(tree, specs, plan)
+            arrays.update({f"{name}.{part}.{k}": v for k, v in _flat(whole).items()})
+        out[name] = {"losses": losses, "step": int(state.step),
+                     "base_unchanged": all(torch.equal(a, b) for a, b in
+                                           zip(before, tr._leaves(base))),
+                     "base_requires_grad": any(t.requires_grad for t in tr._leaves(base)),
+                     "b_local": {t: list(v["b"].shape)
+                                 for t, v in state.params["layers"].items()}}
+    if rank == 0:
+        np.savez(d / "rank0.npz", **arrays)
+    return out
+
+
+@job
+def vision_dp(rank, world, d, args):
+    """``train_vision`` over {dp: world} from the seed: the loss trace."""
+    from tputopo_torch import sharding as sh
+    from tputopo_torch import vision as tv
+
+    _init(rank, world, d)
+    cfg = tv.VisionConfig(**args["cfg"], compute_dtype=torch.float32)
+    plan = sh.build_mesh({"dp": world}, device="cpu")
+    losses = tv.train_vision(plan, cfg, steps=args["steps"], batch=args["batch"],
+                             lr=args["lr"], seed=args["seed"])
+    return {"losses": losses}
+
+
 def main(argv: list[str]) -> None:
     name, rank, world, d = argv[0], int(argv[1]), int(argv[2]), Path(argv[3])
     torch.set_num_threads(1)

@@ -13,8 +13,11 @@ DP x TP sharded step over a gang of processes, one per GPU
 :func:`initialize_from_env`), with the all-reduce acceptance measurement
 against an H100 link model (:func:`measure_allreduce`,
 :func:`validate_slice`), token-corpus shards (:class:`TokenDataset`) and
-checkpoints that restore onto another plan (:mod:`.checkpoint`).
-``python -m tputopo_torch allreduce|train`` is the in-container entry
+checkpoints that restore onto another plan (:mod:`.checkpoint`).  On one
+GPU it also carries speculative decoding (:func:`spec_generate`,
+:class:`SpecServingEngine`), LoRA/QLoRA adapters (:mod:`.lora`) and the
+conv classifier (:mod:`.vision`).  ``python -m tputopo_torch
+allreduce|train|decode|serve|train-vision`` is the in-container entry
 point.  It imports neither JAX nor anything of ``tputopo``.
 """
 
@@ -25,16 +28,21 @@ from tputopo_torch.decode import KVCache, generate
 from tputopo_torch.distributed import initialize_from_env, process_group_from_env
 from tputopo_torch.model import ModelConfig, forward, init_params
 from tputopo_torch.quant import quantize_params, streamed_bytes
+from tputopo_torch.lora import init_lora, lora_view, merge_lora
 from tputopo_torch.serving import ServingEngine
 from tputopo_torch.sharding import MeshPlan, build_mesh, mesh_for_slice, plan_mesh
+from tputopo_torch.speculative import SpecServingEngine, spec_generate
 from tputopo_torch.train import (TrainState, loss_fn, make_sharded_state,
                                  make_sharded_train_step, make_train_state, train_step)
 from tputopo_torch.validate import validate_slice
+from tputopo_torch.vision import VisionConfig, train_vision
 
 __all__ = ["AllReduceResult", "KVCache", "MeshPlan", "ModelConfig", "ServingEngine",
-           "TokenDataset", "TrainState", "build_mesh", "forward", "generate",
-           "init_params", "initialize_from_env", "loss_fn", "make_sharded_state",
+           "SpecServingEngine", "TokenDataset", "TrainState", "VisionConfig",
+           "build_mesh", "forward", "generate", "init_lora", "init_params",
+           "initialize_from_env", "lora_view", "loss_fn", "make_sharded_state",
            "make_sharded_train_step", "make_train_state", "measure_allreduce",
-           "mesh_for_slice", "params_from_numpy", "plan_mesh", "process_group_from_env",
-           "quantize_params", "streamed_bytes", "train_state_from_numpy", "train_step",
+           "merge_lora", "mesh_for_slice", "params_from_numpy", "plan_mesh",
+           "process_group_from_env", "quantize_params", "spec_generate",
+           "streamed_bytes", "train_state_from_numpy", "train_step", "train_vision",
            "validate_slice"]

@@ -1,7 +1,5 @@
 """``python -m tputopo_torch`` — the in-container acceptance workload, the
-counterpart of ``python -m tputopo.workloads`` (its ``allreduce`` and
-``train`` subcommands; ``decode``, ``serve`` and ``train-vision`` come with
-a later slice of the port).
+counterpart of ``python -m tputopo.workloads``.
 
 - ``allreduce``: measure the all-reduce over the gang's GPUs and compare
   with the link model's prediction for the slice topology (``--topology
@@ -9,10 +7,18 @@ a later slice of the port).
   when efficiency falls below ``--min-efficiency``.
 - ``train``: run N sharded training steps of the flagship LM over the
   gang (mesh planned from the world size), with checkpoint/resume, a
-  token corpus, graceful SIGTERM preemption and a profiler trace.
+  token corpus, graceful SIGTERM preemption and a profiler trace;
+  ``--lora-rank`` trains LoRA adapters over a frozen base instead.
+- ``decode``: greedy KV-cache decode throughput (``--int8``/``--int4``).
+- ``serve``: the continuous-batching engine over a seeded request stream,
+  with prefixes, chunked prefill, streaming, quantized weights, or
+  speculative decoding (``--spec-draft-layers``).
+- ``train-vision``: the conv classifier, data parallel over the gang.
 
 Every process of a gang runs this with the gang's env
-(:mod:`tputopo_torch.distributed`): one process per GPU.  ``--device cpu``
+(:mod:`tputopo_torch.distributed`): one process per GPU.  ``decode`` and
+``serve`` run on that one process's device (a gang's processes serve as
+replicas; the ``mesh`` key is the plan of one device).  ``--device cpu``
 runs on the CPU over gloo (the counterpart of ``JAX_PLATFORMS=cpu``).
 The flags, defaults, JSON keys and exit codes are the reference's.
 """
@@ -33,7 +39,6 @@ _UNPORTED = (
     ("--ep", lambda a: a.ep > 1, "the MoE slice (moe.py)"),
     ("--pp", lambda a: a.pp > 1, "the GPipe slice (pipeline.py)"),
     ("--sp", lambda a: (a.sp or 1) > 1, "the ring/Ulysses context-parallel slice"),
-    ("--lora-rank", lambda a: bool(a.lora_rank), "the LoRA slice (lora.py)"),
 )
 
 
@@ -71,7 +76,8 @@ def cmd_train(args) -> int:
     from tputopo_torch import checkpoint as ckptlib
     from tputopo_torch.model import ModelConfig
     from tputopo_torch.sharding import local_batch, mesh_for_slice
-    from tputopo_torch.train import make_sharded_state, make_sharded_train_step
+    from tputopo_torch.train import (make_sharded_params, make_sharded_state,
+                                     make_sharded_train_step)
 
     for flag, is_set, later in _UNPORTED:
         if is_set(args):
@@ -82,21 +88,39 @@ def cmd_train(args) -> int:
     config = ModelConfig(vocab_size=2048, d_model=256, n_layers=4, n_heads=8,
                          n_kv_heads=4, d_ff=512, max_seq=args.seq,
                          sp_impl=args.sp_impl)
+    accum = max(1, args.accum)
+    specs = None  # the checkpoint's layout: the model's unless LoRA
     try:
         plan = mesh_for_slice((n,), device=args.device, heads=config.n_heads,
                               tp=args.tp)
-        state = make_sharded_state(plan, config, 0)  # raises on a tp that cannot split
+        if args.lora_rank:
+            # Parameter-efficient finetuning: the base tree is frozen (a
+            # fresh init standing in for restored pretrained weights; point
+            # --ckpt-dir at an adapter dir to resume the ADAPTER), only the
+            # LoRA TrainState trains and checkpoints.
+            from tputopo_torch import lora
+
+            base = make_sharded_params(plan, config, 0)
+            state = lora.make_sharded_lora_state(plan, config, 1, rank=args.lora_rank)
+            specs = lora.lora_shardings(plan, state.params, config)
+            lora_step = lora.make_sharded_lora_train_step(plan, config, state.params,
+                                                          accum_steps=accum)
+
+            def step(s, t):
+                return lora_step(s, base, t)
+        else:
+            state = make_sharded_state(plan, config, 0)  # raises on a tp that cannot split
+            step = make_sharded_train_step(plan, config, accum_steps=accum)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
     resumed_from = None
     if args.ckpt_dir:
-        restored = ckptlib.restore(args.ckpt_dir, state, plan=plan, config=config)
+        restored = ckptlib.restore(args.ckpt_dir, state, plan=plan, config=config,
+                                   specs=specs)
         if restored is not None:
             state = restored
             resumed_from = int(state.step)
-    accum = max(1, args.accum)
-    step = make_sharded_train_step(plan, config, accum_steps=accum)
     dp = plan.size("dp")
     # Batch must shard over dp AND divide into accumulation microbatches.
     q = dp * accum
@@ -165,7 +189,7 @@ def cmd_train(args) -> int:
                 prof = _start_profile(plan.device)
             if args.ckpt_dir and args.save_every and (i + 1) % args.save_every == 0:
                 last_saved = ckptlib.save(args.ckpt_dir, state, plan=plan,
-                                          config=config)
+                                          config=config, specs=specs)
             stop = preempted["flag"]
             if n > 1:
                 stop = sync_preempt(stop)
@@ -178,7 +202,7 @@ def cmd_train(args) -> int:
         # Final save inside the handler's scope: a second SIGTERM during
         # the save must not kill the write that preserves the run.
         if args.ckpt_dir and last_saved != int(state.step):
-            ckptlib.save(args.ckpt_dir, state, plan=plan, config=config)
+            ckptlib.save(args.ckpt_dir, state, plan=plan, config=config, specs=specs)
     finally:
         if prof is not None:  # crash mid-trace: stop the profiler
             prof.stop()
@@ -199,6 +223,179 @@ def cmd_train(args) -> int:
         # Fresh corpus batches each step need not reduce loss monotonically.
         return 0 if all(math.isfinite(l) for l in losses) else 1
     return 0 if losses[-1] < losses[0] or resumed_from else 1
+
+
+def _maybe_quantize(params: dict, int8: bool, int4: bool = False) -> dict:
+    """Weight-only quantization for the serving CLIs, on the device that
+    holds the params.  --int4 stacks on the int8 KV cache: weights stream
+    grouped int4 (half of int8's bytes again), the cache stays int8."""
+    if not (int8 or int4):
+        return params
+    from tputopo_torch.quant import quantize_params
+
+    return quantize_params(params, bits=4 if int4 else 8)
+
+
+def _lm_config(args):
+    """The serving CLIs' model: the reference's, sized to the request."""
+    from tputopo_torch.model import ModelConfig
+
+    return ModelConfig(vocab_size=2048, d_model=256, n_layers=4, n_heads=8,
+                       n_kv_heads=4, d_ff=512, max_seq=args.prompt_len + args.max_new,
+                       kv_dtype="int8" if args.int8 or args.int4 else "bf16")
+
+
+def _one_device_mesh(heads: int) -> dict:
+    """The ``mesh`` key of a subcommand that runs on this process's one
+    device: the plan of one device."""
+    from tputopo_torch.sharding import plan_mesh
+
+    return plan_mesh(1, heads=heads)
+
+
+def cmd_decode(args) -> int:
+    import time
+
+    import numpy as np
+    import torch
+
+    from tputopo_torch.decode import generate
+    from tputopo_torch.model import init_params
+
+    cfg = _lm_config(args)
+    batch = max(1, args.batch)
+    params = _maybe_quantize(init_params(cfg, 0, device=args.device), args.int8,
+                             args.int4)
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, args.prompt_len))).to(args.device)
+    generate(params, prompt, cfg, max_new=args.max_new)  # warm-up
+    _sync(args.device)
+    t0 = time.perf_counter()
+    generate(params, prompt, cfg, max_new=args.max_new)
+    _sync(args.device)
+    dt = time.perf_counter() - t0
+    print(json.dumps({
+        "batch": batch, "prompt_len": args.prompt_len,
+        "max_new": args.max_new, "mesh": _one_device_mesh(cfg.n_kv_heads),
+        "decode_tokens_per_s": round(batch * args.max_new / dt, 1),
+        "wall_s": round(dt, 4),
+    }))
+    return 0
+
+
+def _sync(device: str) -> None:
+    import torch
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def cmd_serve(args) -> int:
+    """Continuous-batching serving demo: mixed-length prompts stream
+    through a slotted engine (ragged prefill, EOS off, slot reuse)."""
+    import time
+
+    import numpy as np
+
+    from tputopo_torch.model import init_params
+    from tputopo_torch.serving import ServingEngine
+
+    cfg = _lm_config(args)
+    # Flag validation BEFORE any device work (init, quantization).
+    if args.spec_draft_layers:
+        if not 0 < args.spec_draft_layers < cfg.n_layers:
+            print(f"error: --spec-draft-layers must be in "
+                  f"(0, {cfg.n_layers})", file=sys.stderr)
+            return 2
+        if args.spec_gamma < 1:
+            print("error: --spec-gamma must be >= 1", file=sys.stderr)
+            return 2
+        incompatible = [f for f, v in (("--prefix-len", args.prefix_len),
+                                       ("--prefill-chunk", args.prefill_chunk))
+                        if v]
+        if args.steps_per_tick != 8:  # non-default: would be silently ignored
+            incompatible.append("--steps-per-tick")
+        if incompatible:
+            print(f"error: --spec-draft-layers is incompatible with "
+                  f"{', '.join(incompatible)} (a speculative tick is one "
+                  "verify stream; draft-cache mirroring for prefix/chunked "
+                  "admission is future work)", file=sys.stderr)
+            return 2
+    mesh = _one_device_mesh(cfg.n_kv_heads)
+    params = _maybe_quantize(init_params(cfg, 0, device=args.device), args.int8,
+                             args.int4)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(max(1, args.prompt_len // 4), args.prompt_len + 1,
+                        args.requests)
+    max_len = args.prefix_len + args.prompt_len + args.max_new
+    on_tokens = None
+    if args.stream:
+        # JSONL stream ahead of the final summary line: one record per
+        # engine tick per request with its newly committed tokens.
+        def on_tokens(rid, toks):
+            print(json.dumps({"rid": rid, "tokens": toks}), flush=True)
+    if args.spec_draft_layers:
+        from tputopo_torch.speculative import SpecServingEngine
+
+        eng = SpecServingEngine(params, cfg, slots=args.slots, max_len=max_len,
+                                prompt_pad=args.prompt_len,
+                                draft_layers=args.spec_draft_layers,
+                                gamma=args.spec_gamma, on_tokens=on_tokens)
+    else:
+        eng = ServingEngine(params, cfg, slots=args.slots, max_len=max_len,
+                            prompt_pad=args.prompt_len,
+                            steps_per_tick=args.steps_per_tick,
+                            prefill_chunk=args.prefill_chunk, on_tokens=on_tokens)
+    pid = None
+    if args.prefix_len:
+        # Shared system-prompt demo: its KV computes once, every request
+        # below reuses it by copy.
+        pid = eng.register_prefix(
+            rng.integers(0, cfg.vocab_size, (args.prefix_len,)).tolist())
+    ids = [eng.submit(rng.integers(0, cfg.vocab_size, (L,)).tolist(),
+                      max_new=args.max_new, prefix=pid) for L in lens]
+    t0 = time.perf_counter()
+    results = eng.run()
+    _sync(args.device)
+    dt = time.perf_counter() - t0
+    base = args.prefix_len + np.asarray(lens)
+    generated = sum(len(results[i]) - int(b) for i, b in zip(ids, base))
+    out = {
+        "requests": args.requests, "slots": args.slots, "mesh": mesh,
+        "prompt_lens": f"{lens.min()}..{lens.max()}",
+        "prefix_len": args.prefix_len,
+        "generated_tokens": int(generated),
+        "decode_steps": eng.metrics["decode_steps"],
+        "prefix_admits": eng.metrics["prefix_admits"],
+        "tokens_per_s": round(generated / dt, 1),
+        "wall_s": round(dt, 3),
+    }
+    if args.stream:
+        # The timed window includes the stream's host I/O: mark the record
+        # so throughput is not compared across flag sets.
+        out["stream"] = True
+    if args.spec_draft_layers:
+        out["drafted_accepted"] = eng.metrics["drafted_accepted"]
+    print(json.dumps(out))
+    return 0 if len(results) == args.requests else 1
+
+
+def cmd_train_vision(args) -> int:
+    import torch.distributed as dist
+
+    from tputopo_torch.sharding import mesh_for_slice
+    from tputopo_torch.vision import VisionConfig, train_vision
+
+    n = dist.get_world_size()
+    plan = mesh_for_slice((n,), device=args.device, tp=1)  # pure data parallel
+    dp = plan.size("dp")
+    batch = max(dp, args.batch // dp * dp)
+    losses = train_vision(plan, VisionConfig(), steps=args.steps, batch=batch)
+    print(json.dumps({
+        "devices": n, "mesh": plan.axes, "steps": args.steps,
+        "first_loss": round(losses[0], 4), "last_loss": round(losses[-1], 4),
+    }))
+    return 0 if losses[-1] < losses[0] else 1
 
 
 def _start_profile(device):
@@ -268,12 +465,71 @@ def main(argv=None) -> int:
     p.add_argument("--data-dtype", default="uint16",
                    help="stored token dtype of --data (uint16 default)")
     p.add_argument("--lora-rank", type=int, default=0,
-                   help="LoRA adapters of this rank (not ported yet)")
+                   help="train only LoRA adapters of this rank on the "
+                        "attention q/v projections (base frozen; adapter "
+                        "checkpoints via --ckpt-dir)")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="write a torch.profiler Chrome trace of the steps "
                         "after step 0 into DIR (--steps must be >= 2)")
     device_flag(p)
     p.set_defaults(fn=cmd_train)
+
+    p = sub.add_parser("decode", help="KV-cache greedy decode throughput")
+    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--prompt-len", type=int, default=64)
+    p.add_argument("--max-new", type=int, default=64)
+    p.add_argument("--int8", action="store_true",
+                   help="full int8 serving stack: weight-only int8 + int8 "
+                        "KV cache (decode streams bytes; bytes are the lever)")
+    p.add_argument("--int4", action="store_true",
+                   help="grouped int4 weights (half of int8's stream "
+                        "again) over the int8 KV cache")
+    device_flag(p)
+    p.set_defaults(fn=cmd_decode)
+
+    p = sub.add_parser("serve", help="continuous-batching serving engine "
+                                     "(ragged prompts, slot reuse)")
+    p.add_argument("--requests", type=int, default=16)
+    p.add_argument("--slots", type=int, default=4)
+    p.add_argument("--prompt-len", type=int, default=64,
+                   help="prefill bucket; prompts sample 1/4..1x of it")
+    p.add_argument("--max-new", type=int, default=32)
+    p.add_argument("--steps-per-tick", type=int, default=8)
+    p.add_argument("--prefill-chunk", type=int, default=None,
+                   help="chunked prefill: long prompts prefill this many "
+                        "tokens per tick, interleaved with decode (bounds "
+                        "head-of-line blocking); must divide --prompt-len")
+    p.add_argument("--prefix-len", type=int, default=0,
+                   help="shared system-prompt length: its KV computes once "
+                        "(register_prefix) and every request reuses it")
+    p.add_argument("--stream", action="store_true",
+                   help="emit a JSONL token stream ({rid, tokens} per "
+                        "engine tick) ahead of the final summary line; "
+                        "the summary's tokens_per_s then includes the "
+                        "stream's host I/O (it carries stream:true so "
+                        "numbers are not compared across flag sets)")
+    p.add_argument("--int8", action="store_true",
+                   help="full int8 serving stack: weights + KV cache")
+    p.add_argument("--int4", action="store_true",
+                   help="grouped int4 weights (half of int8's stream "
+                        "again) over the int8 KV cache")
+    p.add_argument("--spec-draft-layers", type=int, default=0,
+                   help="speculative continuous batching: draft with this "
+                        "many leading layers, verify per tick (greedy; "
+                        "lossless at f32 — at bf16/int8 a near-tie argmax "
+                        "can flip within a ulp between the width-1 and "
+                        "width-gamma+1 blocks; reports drafted_accepted)")
+    p.add_argument("--spec-gamma", type=int, default=4,
+                   help="draft tokens per speculative tick")
+    device_flag(p)
+    p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("train-vision",
+                       help="conv classifier, data parallel (Gaia Exp.6 analog)")
+    p.add_argument("--steps", type=int, default=20)
+    p.add_argument("--batch", type=int, default=64)
+    device_flag(p)
+    p.set_defaults(fn=cmd_train_vision)
 
     args = ap.parse_args(argv)
     from tputopo_torch.distributed import initialize_from_env, shutdown

@@ -10,6 +10,10 @@ save and the load alone, so the checkpoint records global tensors and a
 restore onto another plan (another dp x tp layout) reshards.  The training
 code itself keeps plain local tensors.
 
+A state's layout under a plan is the model's (:func:`~.sharding.param_specs`
+for ``config``) unless ``specs`` gives another tree's, as a LoRA adapter's
+TrainState does (:func:`~.lora.lora_shardings`).
+
 Layout: ``<ckpt_dir>/step_<N>/`` per saved step, and ``<ckpt_dir>/params/``
 for a serving tree, overwritten in place by every :func:`save_params`.  A
 process with no plan (one device) saves and loads its whole tree.
@@ -50,8 +54,10 @@ def _wrap(tree: dict, specs: dict | None, plan: MeshPlan | None) -> dict:
             for k, v in tree.items()}
 
 
-def _state_dict(state: TrainState, plan: MeshPlan | None, config) -> dict:
-    specs = param_specs(plan, config) if plan is not None else None
+def _state_dict(state: TrainState, plan: MeshPlan | None, config,
+                specs: dict | None = None) -> dict:
+    if plan is not None and specs is None:
+        specs = param_specs(plan, config)
     return {
         "params": _wrap(state.params, specs, plan),
         "opt_state": {"count": state.opt_state.count,
@@ -70,14 +76,15 @@ def _clear(path: Path) -> None:
 
 
 def save(ckpt_dir: str | Path, state: TrainState, plan: MeshPlan | None = None,
-         config=None) -> int:
+         config=None, specs: dict | None = None) -> int:
     """Write one step's checkpoint, this rank's shards of it under ``plan``
-    (``config`` names the model whose layout the plan holds); returns the
-    step number saved.  Every rank of the plan calls it."""
+    (``config`` names the model whose layout the plan holds, or ``specs``
+    gives the state's own layout); returns the step number saved.  Every
+    rank of the plan calls it."""
     step = int(state.step)
     path = Path(ckpt_dir).absolute() / f"step_{step}"
     _clear(path)
-    dcp.save(_state_dict(state, plan, config), checkpoint_id=path)
+    dcp.save(_state_dict(state, plan, config, specs), checkpoint_id=path)
     return step
 
 
@@ -96,17 +103,18 @@ def latest_step(ckpt_dir: str | Path) -> int | None:
 
 
 def restore(ckpt_dir: str | Path, target: TrainState, step: int | None = None,
-            plan: MeshPlan | None = None, config=None) -> TrainState | None:
+            plan: MeshPlan | None = None, config=None,
+            specs: dict | None = None) -> TrainState | None:
     """Load the latest (or given) step into ``target``, a state laid out on
     the *current* plan (e.g. :func:`~.train.make_sharded_state`), which may
     differ from the plan that saved: the load reshards.  ``target``'s
     tensors are overwritten in place.  Returns None when the directory
-    holds no checkpoint (fresh start)."""
+    holds no checkpoint (fresh start).  ``specs`` as in :func:`save`."""
     if step is None:
         step = latest_step(ckpt_dir)
     if step is None:
         return None
-    sd = _state_dict(target, plan, config)
+    sd = _state_dict(target, plan, config, specs)
     dcp.load(sd, checkpoint_id=Path(ckpt_dir).absolute() / f"step_{step}")
     return TrainState(
         params=target.params,

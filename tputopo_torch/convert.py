@@ -10,8 +10,11 @@ int4 leaves (ml_dtypes ``int4``, which torch cannot take) through int8
 into the port's packed form (:func:`~.quant.pack_int4`).
 :func:`train_state_from_numpy`
 carries a training run across: the parameters with optax's AdamW moments
-and step count.  :func:`sharded_params_from_numpy` carries a tree onto a
-mesh plan: the whole tree converted, then cut to this rank's shards.
+and step count, for the model's tree or a LoRA adapter's
+(:func:`lora_from_numpy`).  :func:`sharded_params_from_numpy` carries a
+tree onto a mesh plan: the whole tree converted, then cut to this rank's
+shards.  :func:`vision_params_from_numpy` carries the conv classifier's
+tree, its kernels turned from the reference's HWIO to torch's OIHW.
 """
 
 from __future__ import annotations
@@ -68,6 +71,23 @@ def train_state_from_numpy(params, mu, nu, count, step, *,
                             mu=params_from_numpy(mu, device=dev),
                             nu=params_from_numpy(nu, device=dev)),
         step=scalar(step))
+
+
+def lora_from_numpy(tree, *, device=None) -> dict:
+    """A LoRA adapter tree (``init_lora``'s ``{"layers": {target: {"a",
+    "b", "scale"}}}``) as numpy -> the same tree of f32 tensors on
+    ``device``; its TrainState goes through :func:`train_state_from_numpy`."""
+    return params_from_numpy(tree, device=device, dtype=torch.float32)
+
+
+def vision_params_from_numpy(tree, *, device=None) -> dict:
+    """The conv classifier's params (``init_vision_params``) as numpy ->
+    tensors on ``device``: each ``conv<i>`` kernel from HWIO [3, 3, in, out]
+    to OIHW [out, in, 3, 3], the dense layers as they are."""
+    dev = resolve_device(device)
+    return {k: (_leaf(v, dev, None).permute(3, 2, 0, 1).contiguous()
+                if k.startswith("conv") else _leaf(v, dev, None))
+            for k, v in tree.items()}
 
 
 def sharded_params_from_numpy(tree, plan, config, *,

@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from tputopo_torch.model import (ModelConfig, _apply_rope, _check_supported,
                                  _layer, _rmsnorm, _rope_tables, embed_tokens,
                                  lm_head, resolve_device)
-from tputopo_torch.quant import fold_kv_scale, qdot, quantize_kv
+from tputopo_torch.quant import deq_rows, fold_kv_scale, qdot, quantize_kv
 
 
 class KVCache(NamedTuple):
@@ -104,25 +104,28 @@ def _attend_cached(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
 
 def _block_step(params: dict, config: ModelConfig, tokens: torch.Tensor,
                 start: int, cache: KVCache, cos: torch.Tensor,
-                sin: torch.Tensor) -> torch.Tensor:
+                sin: torch.Tensor, *, check_ids: bool = True) -> torch.Tensor:
     """Feed ``tokens`` [B, T] at positions start..start+T-1 through the
     stack, writing their K/V into ``cache`` -> logits [B, T, V].  T equal
     to the prompt length is the prefill; T == 1 is one decode step."""
     return lm_head(params, _block_hidden(params, config, tokens, start, cache,
-                                         cos, sin), config)
+                                         cos, sin, check_ids=check_ids), config)
 
 
 def _block_hidden(params: dict, config: ModelConfig, tokens: torch.Tensor,
                   start: int, cache: KVCache, cos: torch.Tensor,
-                  sin: torch.Tensor) -> torch.Tensor:
+                  sin: torch.Tensor, *, check_ids: bool = True) -> torch.Tensor:
     """:func:`_block_step` without the head: the last layer's output
     [B, T, D], before the final norm.  Callers that need the logits of few
     positions, or none (a prefill chunk), skip the head's work on the
-    rest, as XLA drops it from the reference's programs that discard it."""
+    rest, as XLA drops it from the reference's programs that discard it.
+    ``check_ids=False`` skips the id range check, a readback, for ids the
+    model picked itself (the speculative loop's blocks)."""
     c = config
     B, T = tokens.shape
     group = c.n_heads // c.n_kv_heads
-    x = embed_tokens(params, tokens, c)  # [B, T, D]
+    x = (embed_tokens(params, tokens, c) if check_ids  # [B, T, D]
+         else deq_rows(params["embed"], tokens, c.compute_dtype))
     cos_t, sin_t = cos[start:start + T], sin[start:start + T]
     for i in range(c.n_layers):
         layer = _layer(params["layers"], i)

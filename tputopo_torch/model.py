@@ -18,7 +18,8 @@ the whole layer and recomputes it in the backward, ``"dots"`` keeps the
 matmul outputs and the flash forward's ``(o, lse)`` and recomputes the
 rest, ``"none"`` keeps everything.
 
-Weights may be raw tensors or the int8/int4 leaves of :mod:`.quant`.
+Weights may be raw tensors, the int8/int4 leaves of :mod:`.quant`, or
+LoRA-wrapped leaves (:mod:`.lora`).
 Under an active mesh plan (:func:`.sharding.activate`) with ``tp > 1``
 the forward runs Megatron's tensor-parallel split on each rank's local
 shards, with the collectives written out: ``wq``/``wk``/``wv``/``w_gate``/
@@ -35,8 +36,7 @@ tp does not divide the kv heads, ``wk``/``wv`` stay whole on every rank and
 each rank takes the kv heads its q heads read (:func:`.sharding.kv_replicated`).
 
 What the port leaves out so far raises ``NotImplementedError``: MoE
-layers (``moe``), LoRA weight leaves, and plans with ``pp``, ``sp`` or
-``ep`` above 1.  The reference's context-parallel strategies (``sp_impl``)
+layers (``moe``) and plans with ``pp``, ``sp`` or ``ep`` above 1.  The reference's context-parallel strategies (``sp_impl``)
 act only under a plan with ``sp > 1``; the port keeps the field and its
 eager check so configs carry over.  The reference's ``constrain``
 annotations are the identity here (:func:`.sharding.constrain`): the
@@ -295,11 +295,19 @@ def transformer_block(x: torch.Tensor, layer: dict, config: ModelConfig,
 
 def _layer(layers: dict, i: int) -> dict:
     """Layer ``i`` of the stacked tree: every tensor indexed on its leading
-    axis, including each array inside a quantized leaf."""
+    axis, including each array inside a quantized or LoRA leaf."""
     def take(w):
         return {k: take(a) for k, a in w.items()} if isinstance(w, dict) else w[i]
 
     return {name: take(w) for name, w in layers.items()}
+
+
+def _requires_grad(tree) -> bool:
+    """Whether any tensor of a nested dict requires grad (a LoRA adapter's
+    leaves sit inside the weight dicts)."""
+    if isinstance(tree, dict):
+        return any(_requires_grad(v) for v in tree.values())
+    return torch.is_tensor(tree) and tree.requires_grad
 
 
 # What remat="dots" keeps: every matmul output (the reference's
@@ -334,8 +342,8 @@ def _block_loop(x: torch.Tensor, layers: dict, config: ModelConfig,
                 cos: torch.Tensor, sin: torch.Tensor,
                 tp=None) -> tuple[torch.Tensor, torch.Tensor]:
     block = transformer_block
-    recording = torch.is_grad_enabled() and (x.requires_grad or any(
-        torch.is_tensor(w) and w.requires_grad for w in layers.values()))
+    recording = torch.is_grad_enabled() and (x.requires_grad
+                                             or _requires_grad(layers))
     if recording:  # remat is a memory policy of the backward pass only
         block = apply_remat(transformer_block, config.remat)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -22,8 +22,9 @@ Quantized values and scales are bit-exact against the reference: the same
 float32 operations in the same order, and ``torch.round`` rounds half to
 even as ``jnp.round`` does.  The matmuls dequantize in the reference's
 order: int8 as ``(x @ q) * s`` in ``x``'s dtype, int4 as f32 per-group
-partials, the group sum, then one cast.  LoRA leaves
-(``{"lora_base", ...}``) come with ``lora.py``'s slice and raise here.
+partials, the group sum, then one cast.  A LoRA leaf
+(``{"lora_base", "lora_a", "lora_b", "lora_scale"}``, :mod:`.lora`) is its
+frozen base, itself raw or quantized, plus the low-rank delta.
 """
 
 from __future__ import annotations
@@ -130,18 +131,20 @@ def quantize_params(params: dict, *, bits: int = 8,
 
 
 def qdot(x: torch.Tensor, w) -> torch.Tensor:
-    """``x @ w`` for a raw or quantized weight.
+    """``x @ w`` for a raw, quantized or LoRA-wrapped weight.
 
     Raw: the weight cast to ``x``'s dtype first.  int8: ``(x @ q) * s`` in
     ``x``'s dtype, the per-output-channel scale applied after the
     contraction.  Grouped int4 must be sliced first, to a packed ``[G, g,
     out / 2]`` with no leading layer axis: the group einsum's ellipsis belongs to
     ``x``'s batch dims, so a stacked leaf is rejected; it runs in f32
-    throughout and casts once, after the group sum."""
+    throughout and casts once, after the group sum.  LoRA: the base dot
+    plus ``(x @ a) @ b * scale`` in f32 (a and b are the f32 masters being
+    trained), cast once to the base dot's dtype."""
     if isinstance(w, dict) and "lora_base" in w:
-        raise NotImplementedError(
-            "LoRA weight leaves are not ported yet: they come with the LoRA "
-            f"slice of tputopo_torch (got leaf keys {sorted(w)})")
+        base = qdot(x, w["lora_base"])
+        delta = (x.float() @ w["lora_a"]) @ w["lora_b"] * w["lora_scale"]
+        return base + delta.to(base.dtype)
     if _is_int4(w):
         if w["int4"].dim() > 3:
             raise ValueError(

@@ -275,6 +275,16 @@ def ragged_block(params: dict, config: ModelConfig, tokens: torch.Tensor,
     Token ids are not range-checked here (that would read them back to the
     host every step): the engine's ids passed the check of the prefill
     that installed them, or are the model's own picks."""
+    return lm_head(params, ragged_hidden(params, config, tokens, starts, cache),
+                   config)
+
+
+@torch.no_grad()
+def ragged_hidden(params: dict, config: ModelConfig, tokens: torch.Tensor,
+                  starts: torch.Tensor, cache: KVCache) -> torch.Tensor:
+    """:func:`ragged_block` without the head: the last layer's output
+    [B, T, D] before the final norm, for callers that need the logits of
+    one position per slot (the speculative draft's catch-up)."""
     c = config
     _check_supported(c)
     B, T = tokens.shape
@@ -308,7 +318,7 @@ def ragged_block(params: dict, config: ModelConfig, tokens: torch.Tensor,
         h2 = _rmsnorm(x, layer["mlp_norm"], c.norm_eps)
         gate = F.silu(qdot(h2, layer["w_gate"]))
         x = x + qdot(gate * qdot(h2, layer["w_up"]), layer["w_down"])
-    return lm_head(params, x, c)
+    return x
 
 
 @torch.no_grad()

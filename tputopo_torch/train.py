@@ -75,7 +75,8 @@ def _rebuild(tree: dict, leaves) -> dict:
 class AdamW:
     """optax ``adamw(lr, b1=0.9, b2=0.95, weight_decay=wd)``: bias-corrected
     Adam (eps 1e-8 outside the square root) plus decoupled weight decay on
-    every leaf, norms and embeddings included, scaled by -lr."""
+    every leaf, norms and embeddings included, scaled by -lr.  It takes
+    any tree of tensors: the model's, or a LoRA adapter's."""
 
     lr: float = 3e-4
     weight_decay: float = 0.1
@@ -83,10 +84,12 @@ class AdamW:
     B1, B2, EPS = 0.9, 0.95, 1e-8
 
     def init(self, params: dict) -> AdamState:
-        def zeros() -> dict:
-            return _rebuild(params, [torch.zeros_like(p) for p in _leaves(params)])
+        leaves = _leaves(params)
 
-        count = torch.zeros((), dtype=torch.int32, device=params["final_norm"].device)
+        def zeros() -> dict:
+            return _rebuild(params, [torch.zeros_like(p) for p in leaves])
+
+        count = torch.zeros((), dtype=torch.int32, device=leaves[0].device)
         return AdamState(count=count, mu=zeros(), nu=zeros())
 
     @torch.no_grad()
@@ -102,7 +105,19 @@ class AdamW:
             mu.mul_(self.B1).add_(g, alpha=1 - self.B1)
             nu.mul_(self.B2).addcmul_(g, g, value=1 - self.B2)
             u = (mu / bc1).div_((nu / bc2).sqrt_().add_(self.EPS))
-            p.sub_(u.add_(p, alpha=self.weight_decay).mul_(self.lr))
+            if self.weight_decay:
+                u.add_(p, alpha=self.weight_decay)
+            p.sub_(u.mul_(self.lr))
+
+
+@dataclass(frozen=True)
+class Adam(AdamW):
+    """optax ``adam(lr)``: b1 0.9, b2 0.999, eps 1e-8 and no weight decay
+    (the vision model's optimizer); the same state as :class:`AdamW`."""
+
+    weight_decay: float = 0.0
+
+    B2 = 0.999
 
 
 def make_optimizer(lr: float = 3e-4, weight_decay: float = 0.1) -> AdamW:
@@ -138,17 +153,20 @@ def loss_fn(params: dict, tokens: torch.Tensor, config: ModelConfig) -> torch.Te
     return nll.mean() + aux
 
 
-def loss_and_grads(params: dict, tokens: torch.Tensor,
-                   config: ModelConfig) -> tuple[torch.Tensor, list]:
-    """``jax.value_and_grad(loss_fn)``: the loss and one grad per leaf of
-    ``params`` (in :func:`_leaves` order), leaving ``params`` untouched."""
+def loss_and_grads(params: dict, tokens: torch.Tensor, config: ModelConfig,
+                   loss=loss_fn) -> tuple[torch.Tensor, list]:
+    """``jax.value_and_grad(loss)``: the loss and one grad per leaf of
+    ``params`` (in :func:`_leaves` order), leaving ``params`` untouched.
+    ``loss(params, tokens, config)`` is :func:`loss_fn` unless another
+    objective is given (the LoRA step differentiates in the adapter)."""
     leaves = [p.detach().requires_grad_() for p in _leaves(params)]
-    loss = loss_fn(_rebuild(params, leaves), tokens, config)
-    return loss.detach(), list(torch.autograd.grad(loss, leaves))
+    value = loss(_rebuild(params, leaves), tokens, config)
+    return value.detach(), list(torch.autograd.grad(value, leaves))
 
 
 def accumulated_loss_and_grads(params: dict, tokens: torch.Tensor, config: ModelConfig,
-                               accum_steps: int = 1) -> tuple[torch.Tensor, list]:
+                               accum_steps: int = 1,
+                               loss=loss_fn) -> tuple[torch.Tensor, list]:
     """:func:`loss_and_grads` of the batch, or with ``accum_steps > 1`` the
     mean over that many equal microbatches, run one after another: their
     grads are summed, so activation memory drops to one microbatch's worth
@@ -156,16 +174,16 @@ def accumulated_loss_and_grads(params: dict, tokens: torch.Tensor, config: Model
     model: cross-entropy means over equal chunks average to the full
     mean)."""
     if accum_steps <= 1:
-        return loss_and_grads(params, tokens, config)
+        return loss_and_grads(params, tokens, config, loss)
     B = tokens.shape[0]
     if B % accum_steps:
         raise ValueError(f"batch {B} not divisible by accum_steps {accum_steps}")
-    loss, grads = 0.0, None
+    total, grads = 0.0, None
     for mb in tokens.reshape(accum_steps, B // accum_steps, tokens.shape[1]):
-        l, g = loss_and_grads(params, mb, config)
-        loss = loss + l
+        l, g = loss_and_grads(params, mb, config, loss)
+        total = total + l
         grads = g if grads is None else [a.add_(b) for a, b in zip(grads, g)]
-    return loss / accum_steps, [g.div_(accum_steps) for g in grads]
+    return total / accum_steps, [g.div_(accum_steps) for g in grads]
 
 
 def train_step(state: TrainState, tokens: torch.Tensor, config: ModelConfig,
@@ -214,12 +232,12 @@ def state_shardings(plan: shardlib.MeshPlan, config: ModelConfig,
                       step=plan.replicated())
 
 
-def make_sharded_state(plan: shardlib.MeshPlan, config: ModelConfig, seed: int = 0,
-                       lr: float = 3e-4) -> TrainState:
-    """This rank's shards of ``make_train_state(config, seed)`` on the plan's
-    device, equal to the slices of that tree bit for bit: :func:`~.model.init_params`
-    cuts each leaf to its block as it is drawn, so the whole tree is never
-    resident."""
+def make_sharded_params(plan: shardlib.MeshPlan, config: ModelConfig,
+                        seed: int = 0) -> dict:
+    """This rank's shards of ``init_params(config, seed)`` on the plan's
+    device, equal to the slices of that tree bit for bit: each leaf is cut
+    to its block as it is drawn (:func:`~.model.init_params`' ``cut``), so
+    the whole tree is never resident."""
     pspecs = shardlib.param_specs(plan, config)
 
     def cut(path, leaf):
@@ -228,33 +246,48 @@ def make_sharded_state(plan: shardlib.MeshPlan, config: ModelConfig, seed: int =
             spec = spec[k]
         return shardlib.shard_leaf(leaf, spec, plan)
 
-    params = init_params(config, seed, device=plan.device, cut=cut)
+    return init_params(config, seed, device=plan.device, cut=cut)
+
+
+def make_sharded_state(plan: shardlib.MeshPlan, config: ModelConfig, seed: int = 0,
+                       lr: float = 3e-4) -> TrainState:
+    """This rank's shards of ``make_train_state(config, seed)``
+    (:func:`make_sharded_params`) with zeroed AdamW moments."""
+    params = make_sharded_params(plan, config, seed)
     return TrainState(params=params, opt_state=make_optimizer(lr).init(params),
                       step=torch.zeros((), dtype=torch.int32, device=plan.device))
 
 
 def sharded_loss_and_grads(plan: shardlib.MeshPlan, params: dict,
                            tokens: torch.Tensor, config: ModelConfig,
-                           accum_steps: int = 1) -> tuple[torch.Tensor, list]:
+                           accum_steps: int = 1, *, loss=loss_fn,
+                           tp_partial=None) -> tuple[torch.Tensor, list]:
     """This rank's part of one step before the update: the global loss and
     the global grads' local shards (in :func:`_leaves` order), from this
     rank's block of the batch ``tokens`` (:func:`~.sharding.local_batch`).
-    At tp = 1 the local loss is :func:`loss_fn`'s unsharded path exactly."""
+    At tp = 1 the local loss is :func:`loss_fn`'s unsharded path exactly.
+
+    ``tp_partial`` names the leaves (dotted, :func:`_leaf_names`) whose
+    local grad is a partial sum over the tp ranks, summed here: by default
+    ``wk``/``wv`` when they are kept whole (:func:`~.sharding.kv_replicated`),
+    each tp rank holding their grad from its own q heads only."""
     plan.check_supported()
     with shardlib.activate(plan):
-        loss, grads = accumulated_loss_and_grads(params, tokens, config, accum_steps)
-    if shardlib.kv_replicated(plan, config) and plan.size("tp") > 1:
-        # each tp rank holds the grad of wk/wv from its own q heads only
-        names = _leaf_names(params)
-        for i, name in enumerate(names):
-            if name in ("layers.wk", "layers.wv"):
-                dist.all_reduce(grads[i], group=plan.group("tp"))
+        value, grads = accumulated_loss_and_grads(params, tokens, config,
+                                                  accum_steps, loss)
+    if tp_partial is None:
+        tp_partial = (("layers.wk", "layers.wv")
+                      if shardlib.kv_replicated(plan, config) else ())
+    if plan.size("tp") > 1 and tp_partial:
+        for name, g in zip(_leaf_names(params), grads):
+            if name in tp_partial:
+                dist.all_reduce(g, group=plan.group("tp"))
     dp, group = plan.size("dp"), plan.group("dp")
     for g in grads:
         dist.all_reduce(g, group=group)
         g.div_(dp)
-    loss = all_reduce_f32(loss.reshape(1), group)[0] / dp
-    return loss, grads
+    value = all_reduce_f32(value.reshape(1), group)[0] / dp
+    return value, grads
 
 
 def _leaf_names(tree: dict, prefix: str = "") -> list[str]:
