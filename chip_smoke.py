@@ -910,8 +910,13 @@ def phase_lora_serve(tt, kernels, params, cfg) -> dict:
     a zero-b adapter gives the base engine's tokens bit for bit; a nonzero
     adapter through lora_view, every pick within GEN_GAP of the merged
     weights' forward; QLoRA (int8 base, int8 KV cache, the same adapter)
-    within SERVE_INT8_GAP of the dequantized twin's forward.  No flash
-    launch.  Returns the launches of the three adapter runs."""
+    within SERVE_INT8_GAP of the dequantized twin's forward.  The adapter
+    must show in what is served: some of its tokens differ from the base
+    engine's, and the base's picks sit further off the merged forward than
+    the adapter's do (an engine that dropped the delta would serve the
+    base's tokens and read the same gap).  No flash launch in the three
+    adapter runs, which are the only work counted.  Returns their
+    launches."""
     from tputopo_torch import lora
     from tputopo_torch.quant import deq, is_quantized
 
@@ -925,22 +930,24 @@ def phase_lora_serve(tt, kernels, params, cfg) -> dict:
     for ad in adapter["layers"].values():
         ad["b"].normal_(0.0, LORA_B_STD, generator=gen)
 
-    def serve(tree, scfg):
-        return run_engine(tt, tree, scfg, None, reqs, make=lambda cb: tt.ServingEngine(
-            tree, scfg, on_tokens=cb, **SERVE_ENGINE))
-
-    base_run = serve(params, cfg)
+    base_run = run_engine(tt, params, cfg, None, reqs)
     reset(kernels)
-    zero_run = serve(lora.lora_view(params, zero), cfg)
-    view_run = serve(lora.lora_view(params, adapter), cfg)
+    zero_run = run_engine(tt, lora.lora_view(params, zero), cfg, None, reqs)
+    view_run = run_engine(tt, lora.lora_view(params, adapter), cfg, None, reqs)
+    launches = launch_counts(kernels)
     check_rows(view_run["rows"], view_run["plens"], reqs, None, cfg.vocab_size, "lora_serve")
     merged = lora.merge_lora(params, adapter)
     vs = picks_vs_forward(tt, merged, cfg, view_run["rows"], view_run["plens"])
+    vs_base = picks_vs_forward(tt, merged, cfg, base_run["rows"], base_run["plens"])
     del merged
+    changed = sum(a != b for ra, rb, n in zip(view_run["rows"], base_run["rows"],
+                                              view_run["plens"])
+                  for a, b in zip(ra[n:], rb[n:]))
     qcfg = dataclasses.replace(cfg, kv_dtype="int8")
     qbase = tt.quantize_params(params, bits=8)
-    q_run = serve(lora.lora_view(qbase, adapter), qcfg)
-    launches = launch_counts(kernels)
+    reset(kernels)
+    q_run = run_engine(tt, lora.lora_view(qbase, adapter), qcfg, None, reqs)
+    launches = {k: n + launches[k] for k, n in launch_counts(kernels).items()}
     check_rows(q_run["rows"], q_run["plens"], reqs, None, cfg.vocab_size, "lora_serve int8")
 
     def twin(t):
@@ -972,12 +979,17 @@ def phase_lora_serve(tt, kernels, params, cfg) -> dict:
                             "adapter": view_run["tokens_per_s"],
                             "qlora_int8": q_run["tokens_per_s"]},
            "adapter_vs_merged": {**vs, "bound_max_gap": GEN_GAP},
+           "base_vs_merged": vs_base,
+           "adapter_changed_token_share": changed / view_run["generated"],
            "qlora_vs_dequantized_twin": {**vs_q, "bound_max_gap": SERVE_INT8_GAP},
            "launches": launches, "seconds": time.perf_counter() - t_phase}
     emit(rec)
     check(rec["zero_b_equals_base"], "lora_serve: a zero-b adapter changed the tokens")
     check(vs["vs_forward_max_gap"] <= GEN_GAP,
           f"lora_serve: a pick is off the merged weights' forward: {vs}")
+    check(changed > 0 and vs_base["vs_forward_max_gap"] > vs["vs_forward_max_gap"],
+          f"lora_serve: the adapter does not show in the served tokens: {changed} "
+          f"changed, base picks vs merged {vs_base}, adapter's {vs}")
     check(vs_q["vs_forward_max_gap"] <= SERVE_INT8_GAP,
           f"lora_serve: a QLoRA pick is off the dequantized twin's forward: {vs_q}")
     check(not any(launches.values()), f"lora_serve launched a flash kernel: {launches}")

@@ -282,12 +282,19 @@ def sharded_loss_and_grads(plan: shardlib.MeshPlan, params: dict,
         for name, g in zip(_leaf_names(params), grads):
             if name in tp_partial:
                 dist.all_reduce(g, group=plan.group("tp"))
+    return dp_mean_(plan, value, grads), grads
+
+
+def dp_mean_(plan: shardlib.MeshPlan, value: torch.Tensor, grads: list) -> torch.Tensor:
+    """The mean over the plan's dp ranks of this rank's loss ``value`` and
+    ``grads``: the grads summed over dp (f32 masters, so f32 grads) and
+    divided by dp in place, the loss in f32.  For equal local batches this
+    is the global batch's mean.  Returns the mean loss."""
     dp, group = plan.size("dp"), plan.group("dp")
     for g in grads:
         dist.all_reduce(g, group=group)
         g.div_(dp)
-    value = all_reduce_f32(value.reshape(1), group)[0] / dp
-    return value, grads
+    return all_reduce_f32(value.reshape(1), group)[0] / dp
 
 
 def _leaf_names(tree: dict, prefix: str = "") -> list[str]:

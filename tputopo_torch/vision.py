@@ -35,12 +35,11 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
 from tputopo_torch import sharding as shardlib
-from tputopo_torch.model import all_reduce_f32, resolve_device
-from tputopo_torch.train import Adam, _leaves, _rebuild
+from tputopo_torch.model import resolve_device
+from tputopo_torch.train import Adam, dp_mean_, loss_and_grads
 
 
 @dataclass(frozen=True)
@@ -135,19 +134,15 @@ def make_vision_train_step(plan: shardlib.MeshPlan | None, cfg: VisionConfig,
     collective."""
     opt = Adam(lr=lr)
 
+    def loss(p, batch, c):
+        return vision_loss(p, *batch, c)
+
     def step(params, opt_state, images, labels):
-        leaves = [p.detach().requires_grad_() for p in _leaves(params)]
-        loss = vision_loss(_rebuild(params, leaves), images, labels, cfg)
-        grads = list(torch.autograd.grad(loss, leaves))
-        loss = loss.detach()
+        value, grads = loss_and_grads(params, (images, labels), cfg, loss=loss)
         if plan is not None:
-            dp, group = plan.size("dp"), plan.group("dp")
-            for g in grads:  # the params are f32 masters: so are their grads
-                dist.all_reduce(g, group=group)
-                g.div_(dp)
-            loss = all_reduce_f32(loss.reshape(1), group)[0] / dp
+            value = dp_mean_(plan, value, grads)
         opt.update_(grads, opt_state, params)
-        return params, opt_state, loss
+        return params, opt_state, value
 
     return step, opt
 
