@@ -102,11 +102,29 @@ def test_train_on_a_token_corpus(tmp_path, capsys):
     assert "token id 2048 >= vocab 2048" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flags", [["--experts", "4"], ["--ep", "2"], ["--pp", "2"],
-                                   ["--sp", "2"], ["--lora-rank", "4", "--pp", "2"]])
+@pytest.mark.parametrize("flags", [["--experts", "4", "--ep", "2"], ["--ep", "2"],
+                                   ["--pp", "2"], ["--sp", "2"],
+                                   ["--lora-rank", "4", "--pp", "2"]])
 def test_unported_flags_exit_2_naming_the_later_slice(flags, capsys):
+    """Every flag is ported now; on one process each of these exits 2 with
+    the reference's error: --ep without --experts, or an axis of 2 that one
+    device cannot hold (plan_mesh)."""
     assert main(["train", *SMALL, *flags]) == 2
-    assert "not ported yet" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert ("--ep needs --experts" if flags == ["--ep", "2"] else "does not divide") in err
+
+
+def test_train_experts_trains_an_moe_model_and_resumes(tmp_path, capsys):
+    ckpt = str(tmp_path / "moe")
+    assert main(["train", *SMALL, "--experts", "4", "--steps", "3",
+                 "--ckpt-dir", ckpt]) == 0
+    first = _json(capsys.readouterr().out)
+    assert set(first) == TRAIN_KEYS and first["mesh"] == ONE_DEVICE
+    assert first["final_step"] == 3 and first["last_loss"] < first["first_loss"]
+    assert main(["train", *SMALL, "--experts", "4", "--steps", "2",
+                 "--ckpt-dir", ckpt]) == 0
+    second = _json(capsys.readouterr().out)
+    assert second["resumed_from"] == 3 and second["final_step"] == 5
 
 
 def test_train_lora_rank_trains_the_adapter_and_resumes(tmp_path, capsys):

@@ -300,11 +300,12 @@ def test_lora_shardings_follow_the_base_layout():
             assert specs[t]["a"] == (None, None, None) and specs[t]["scale"] == (None,)
             assert specs[t]["b"][2] == base[t][2]  # b's output axis is the base's
         assert (specs["wv"]["b"][2] is None) == kv_whole
-    with pytest.raises(NotImplementedError, match="GPipe"):
-        tl.make_sharded_lora_train_step(sh.MeshPlan(mesh=None, axes={"pp": 2}), TCFG, lora)
-    with pytest.raises(NotImplementedError, match="GPipe"):
-        tl.make_sharded_lora_train_step(sh.MeshPlan(mesh=None, axes={}), TCFG, lora,
-                                        n_micro=2)
+    # under pp the adapter's layer axis splits over the stages, as the base's
+    pp = sh.MeshPlan(mesh=None, axes={"pp": 2, "tp": 2})
+    specs = tl.lora_shardings(pp, lora, TCFG)["layers"]
+    assert specs["wq"] == {"a": ("pp", None, None), "b": ("pp", None, "tp"),
+                           "scale": ("pp",)}
+    assert callable(tl.make_sharded_lora_train_step(pp, TCFG, lora, n_micro=2))
 
 
 SHARD_CASES = {
@@ -401,3 +402,43 @@ def test_adapter_checkpoint_saves_restores_and_resumes(base, tmp_path):
     assert l1.item() == l2.item()
     for a, b in zip(tr._leaves(got.params), tr._leaves(state.params)):
         assert torch.equal(a, b)
+
+
+@pytest.fixture(scope="module")
+def piped(base, tmp_path_factory):
+    """The reference's single-device adapter steps with 2 accumulation
+    microbatches, and the port's on 8 gloo ranks {pp:2, dp:2, tp:2}: the
+    forward through the GPipe pipeline, accumulation on top."""
+    jlora, _ = _adapter()
+    tokens = _toks(5, (8, 32))  # dp * pp * accum = 8
+    plan = build_mesh({"dp": 1}, devices=jax.devices()[:1])
+    jstep = jl.make_sharded_lora_train_step(plan, JCFG, jlora, lr=LR, accum_steps=2)
+    jstate, losses = _jax_state(jlora), []
+    for _ in range(3):
+        jstate, loss = jstep(jstate, base[0], jnp.asarray(tokens))
+        losses.append(float(loss))
+    d = tmp_path_factory.mktemp("lora_piped")
+    np.savez(d / "inputs.npz", tokens=tokens,
+             **{f"p.{k}": v for k, v in _flat(jax.device_get(base[0])).items()},
+             **{f"a.{k}": v for k, v in _flat(jax.device_get(jlora)).items()})
+    case = {"name": "pp2dp2tp2", "axes": {"pp": 2, "dp": 2, "tp": 2}, "accum": 2}
+    ranks = run_ranks("lora_sharded", 8, d, {"cases": [case], "lr": LR, "steps": 3},
+                      timeout=240)
+    return {"losses": losses, "params": _flat(jax.device_get(jstate.params)),
+            "ranks": ranks, "arrays": dict(np.load(d / "rank0.npz"))}
+
+
+def test_lora_pipeline_and_accum_compose(piped):
+    """The port of tests/test_lora.py::test_lora_pipeline_and_accum_compose:
+    with pp > 1 the adapter's step runs the pipelined forward, accumulates
+    over 2 microbatches, and converges; here also the reference's
+    single-device losses and adapter, step for step."""
+    for r in piped["ranks"]:
+        got = r["pp2dp2tp2"]
+        assert all(np.isfinite(got["losses"]))
+        assert got["losses"][2] < got["losses"][1] < got["losses"][0]
+        assert got["losses"] == pytest.approx(piped["losses"], rel=TOL)
+        assert got["step"] == 3 and got["base_unchanged"]
+    for name, want in piped["params"].items():
+        np.testing.assert_allclose(piped["arrays"][f"pp2dp2tp2.params.{name}"], want,
+                                   rtol=TOL, atol=TOL, err_msg=name)

@@ -101,8 +101,12 @@ def test_unported_features_raise():
     _, tcfg = _pair("float32")
     params = tm.init_params(tcfg, 0, device="cpu")
     tokens = torch.zeros((1, 16), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tm.init_params(dataclasses.replace(tcfg, moe=object()), device="cpu")
+    # MoE layers are ported (tests/test_torch_moe.py): the expert tables
+    # take the dense FFN's place
+    from tputopo_torch.moe import MoEConfig
+
+    moe = tm.init_params(dataclasses.replace(tcfg, moe=MoEConfig(n_experts=2)), device="cpu")
+    assert "moe" in moe["layers"] and "w_gate" not in moe["layers"]
     # LoRA leaves are ported (tests/test_torch_lora.py): a zero-b adapter
     # leaves the forward as it is
     wq = params["layers"]["wq"]

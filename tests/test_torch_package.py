@@ -42,10 +42,23 @@ def test_port_imports_no_jax_and_nothing_of_tputopo():
             "tputopo_torch.validate", "tputopo_torch.sharding", "tputopo_torch.data",
             "tputopo_torch.checkpoint", "tputopo_torch.__main__",
             "tputopo_torch.speculative", "tputopo_torch.lora",
-            "tputopo_torch.vision"} <= set(got["port"])
+            "tputopo_torch.vision", "tputopo_torch.moe", "tputopo_torch.pipeline",
+            "tputopo_torch.ring", "tputopo_torch.ulysses"} <= set(got["port"])
 
 
-@pytest.mark.parametrize("module", ["speculative", "lora", "vision"])
+def test_every_reference_module_is_mirrored_and_no_later_slice_is_left():
+    """Each module of tputopo/workloads has its namesake in the port, and
+    no source of the port names a later slice of itself."""
+    ref = {p.stem for p in (REPO / "tputopo" / "workloads").glob("*.py")}
+    port = {p.stem for p in (REPO / "tputopo_torch").glob("*.py")}
+    assert len(ref) == 21 and not sorted(ref - port)  # 20 modules and __init__
+    for path in sorted((REPO / "tputopo_torch").rglob("*.py")):
+        text = path.read_text().lower()
+        assert "later slice" not in text and "not ported yet" not in text, path
+
+
+@pytest.mark.parametrize("module", ["speculative", "lora", "vision", "moe", "pipeline",
+                                    "ring", "ulysses"])
 def test_port_modules_expose_the_reference_public_names(module):
     """Every public name of the reference module (read from its source, so
     JAX is not imported) is in the port's module."""

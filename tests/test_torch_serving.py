@@ -12,7 +12,7 @@ Not mirrored, and why:
 
 - the compile-count tests: the port traces nothing, so there is no
   program cache to count;
-- MoE serving: MoE is not ported (the port raises, checked below);
+- MoE serving: held against the JAX engine in tests/test_torch_moe.py;
 - sharded serving: it comes with the multi-GPU slice;
 - the speculative engine's stream: it comes with ``speculative.py``'s
   slice.
@@ -374,9 +374,16 @@ def test_engine_validation(weights):
         with pytest.raises(ValueError, match="prefill_chunk"):
             ts.ServingEngine(tp, TCFG, slots=1, max_len=16, prompt_pad=8,
                              prefill_chunk=chunk)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        ts.ServingEngine(tp, dataclasses.replace(TCFG, moe=object()), slots=1,
-                         max_len=8, prompt_pad=4)
+    # MoE serving is ported (tests/test_torch_moe.py): the engine takes an
+    # MoE tree
+    from tputopo_torch.moe import MoEConfig
+
+    moe_cfg = dataclasses.replace(TCFG, moe=MoEConfig(n_experts=2))
+    eng = ts.ServingEngine(tm.init_params(moe_cfg, 0, device="cpu"), moe_cfg, slots=1,
+                           max_len=8, prompt_pad=4)
+    eng.submit([1, 2], max_new=2)
+    row = list(eng.run()[0])
+    assert row[:2] == [1, 2] and len(row) == 4  # the prompt, then 2 new tokens
 
 
 def test_prefix_cache_validation_and_unregister(weights):

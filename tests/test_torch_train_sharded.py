@@ -145,16 +145,20 @@ def test_world_of_one_accumulation_equals_full_batch():
 
 
 def test_unported_axes_and_options_raise():
+    """Every axis and option is ported now (tests/test_torch_moe.py,
+    test_torch_ring.py, test_torch_ulysses.py, test_torch_pipeline.py): the
+    step takes pp, sp and ep and n_micro, and param_specs the MoE layout;
+    what still raises is a shape the pipeline cannot cut."""
+    from tputopo_torch import pipeline
+    from tputopo_torch.moe import MoEConfig
+
     for axis in ("pp", "sp", "ep"):
-        plan = sh.MeshPlan(mesh=None, axes={axis: 2})
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            tr.make_sharded_train_step(plan, TTINY)
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            with sh.activate(plan):
-                tm.forward(tm.init_params(TTINY, device="cpu"),
-                           torch.zeros((1, 16), dtype=torch.long), TTINY)
-    with pytest.raises(NotImplementedError, match="GPipe"):
-        tr.make_sharded_train_step(sh.MeshPlan(mesh=None, axes={}), TTINY, n_micro=2)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        sh.param_specs(sh.MeshPlan(mesh=None, axes={}),
-                       dataclasses.replace(TTINY, moe=object()))
+        assert callable(tr.make_sharded_train_step(sh.MeshPlan(mesh=None, axes={axis: 2}),
+                                                   TTINY, n_micro=2))
+    specs = sh.param_specs(sh.MeshPlan(mesh=None, axes={"ep": 2}),
+                           dataclasses.replace(TTINY, moe=MoEConfig()))
+    assert specs["layers"]["moe"]["w_up"] == (None, "ep", None, None)
+    with pytest.raises(ValueError, match="stages"):
+        pipeline.pipelined_trunk(tm.init_params(TTINY, device="cpu"),
+                                 torch.zeros((4, 16), dtype=torch.long), TTINY,
+                                 sh.MeshPlan(mesh=None, axes={"pp": 4}), n_micro=2)

@@ -261,6 +261,114 @@ def vision_dp(rank, world, d, args):
     return {"losses": losses}
 
 
+def _config(cfg: dict):
+    """A ModelConfig from the job's JSON: the model's fields, ``moe`` a dict
+    of MoEConfig fields or absent, f32 compute."""
+    from tputopo_torch.model import ModelConfig
+    from tputopo_torch.moe import MoEConfig
+
+    cfg = dict(cfg)
+    moe = cfg.pop("moe", None)
+    return ModelConfig(**cfg, moe=MoEConfig(**moe) if moe else None,
+                       compute_dtype=torch.float32)
+
+
+@job
+def parallel_step(rank, world, d, args):
+    """Per case of ``args["cases"]`` (axes, n_micro, accum, logits, and
+    ``cfg`` fields over the job's ``args["cfg"]``, ``params`` the prefix
+    of its tree in inputs.npz, "p" by default): the
+    sharded forward's logits (gathered whole) and aux, then one sharded
+    step from the converted params in inputs.npz, its loss and the updated
+    params gathered whole."""
+    from tputopo_torch import pipeline
+    from tputopo_torch import sharding as sh
+    from tputopo_torch import train as tr
+    from tputopo_torch.convert import sharded_params_from_numpy
+    from tputopo_torch.model import forward_with_aux
+
+    _init(rank, world, d)
+    blocks = [0]  # the pipeline's layer calls on this rank
+    block = pipeline.transformer_block
+
+    def counted(*a, **kw):
+        blocks[0] += 1
+        return block(*a, **kw)
+
+    pipeline.transformer_block = counted
+    inputs = np.load(d / "inputs.npz")
+    tokens = torch.from_numpy(inputs["tokens"])
+    out, arrays = {}, {}
+    for case in args["cases"]:
+        name, n_micro = case["name"], case.get("n_micro")
+        tree = case.get("params", "p") + "."
+        full = _nest({k[len(tree):]: inputs[k] for k in inputs.files if k.startswith(tree)})
+        cfg = _config({**args["cfg"], **case.get("cfg", {})})
+        plan = sh.build_mesh(case["axes"], device="cpu")
+        specs = tr.state_shardings(plan, cfg)
+        params = sharded_params_from_numpy(full, plan, cfg)
+        local = sh.local_batch(plan, tokens)
+        res = {"local": {k: list(v.shape) for k, v in _flat(params).items()}}
+        if case.get("logits"):
+            with torch.no_grad(), sh.activate(plan):
+                logits, aux = forward_with_aux(params, local, cfg, n_micro=n_micro)
+            arrays[f"{name}.logits"] = sh.gather_leaf(
+                logits, plan.spec("dp", "sp", None), plan).numpy()
+            res["aux"] = aux.item()
+        state = tr.TrainState(params=params,
+                              opt_state=tr.make_optimizer(args["lr"]).init(params),
+                              step=torch.zeros((), dtype=torch.int32))
+        step = tr.make_sharded_train_step(plan, cfg, lr=args["lr"], n_micro=n_micro,
+                                          accum_steps=case.get("accum", 1))
+        blocks[0] = 0
+        state, loss = step(state, local)
+        res["pipeline_blocks"] = blocks[0]
+        gathered = sh.gather_tree(state.params, specs.params, plan)
+        arrays.update({f"{name}.{k}": v for k, v in _flat(gathered).items()})
+        out[name] = {**res, "loss": loss.item(), "step": int(state.step),
+                     "host_staged": dict(sh.HOST_STAGED)}
+    if rank == 0:
+        np.savez(d / "rank0.npz", **arrays)
+    return out
+
+
+@job
+def sp_attention(rank, world, d, args):
+    """Per case (axes, fn "ring" or "a2a", impl, causal, kv_group): the
+    per-rank attention on this rank's block of q/k/v from inputs.npz (batch
+    over dp, sequence over sp, heads over tp), and the grads of
+    sum(out * do) in q, k and v; output and grads gathered whole."""
+    from tputopo_torch import sharding as sh
+    from tputopo_torch.ring import ring_attention
+    from tputopo_torch.ulysses import a2a_attention
+
+    _init(rank, world, d)
+    inputs = np.load(d / "inputs.npz")
+    arrays, out = {}, {}
+    for case in args["cases"]:
+        name = case["name"]
+        plan = sh.build_mesh(case["axes"], device="cpu")
+        spec = plan.spec("dp", "sp", "tp", None)
+        prefix = case.get("inputs", "")
+        q, k, v, do = (sh.shard_leaf(torch.from_numpy(inputs[prefix + n]), spec, plan)
+                       for n in ("q", "k", "v", "do"))
+        q, k, v = (t.requires_grad_() for t in (q, k, v))
+        fn = ring_attention if case["fn"] == "ring" else a2a_attention
+        try:
+            o = fn(q, k, v, plan, causal=case["causal"], kv_group=case.get("kv_group", 1),
+                   impl=case["impl"])
+        except ValueError as e:
+            out[name] = {"error": str(e)}
+            continue
+        grads = torch.autograd.grad((o * do).sum(), (q, k, v))
+        for n, t in zip(("out", "dq", "dk", "dv"), (o, *grads)):
+            arrays[f"{name}.{n}"] = sh.gather_leaf(t.detach(), spec, plan).numpy()
+        out[name] = {"local": list(q.shape)}
+    if rank == 0:
+        np.savez(d / "rank0.npz", **arrays)
+    return out
+
+
 def main(argv: list[str]) -> None:
     name, rank, world, d = argv[0], int(argv[1]), int(argv[2]), Path(argv[3])
     torch.set_num_threads(1)

@@ -50,6 +50,17 @@ def train_state_to_torch(jax_state) -> TrainState:
         adam.count, np.asarray(jax_state.step), device="cpu")
 
 
+def flat(tree, prefix: str = "") -> dict:
+    """``{"a.b": array}`` from a nested dict of arrays (JAX or numpy)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
+
+
 def normal(shape, seed: int = 0, n: int = 3) -> tuple[np.ndarray, ...]:
     """``n`` float32 standard-normal arrays of ``shape`` from ``seed``."""
     rng = np.random.default_rng(seed)

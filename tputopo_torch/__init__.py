@@ -16,7 +16,11 @@ against an H100 link model (:func:`measure_allreduce`,
 checkpoints that restore onto another plan (:mod:`.checkpoint`).  On one
 GPU it also carries speculative decoding (:func:`spec_generate`,
 :class:`SpecServingEngine`), LoRA/QLoRA adapters (:mod:`.lora`) and the
-conv classifier (:mod:`.vision`).  ``python -m tputopo_torch
+conv classifier (:mod:`.vision`).  The parallelism strategies run
+beside dp and tp: Mixture-of-Experts layers with experts over ``ep``
+(:class:`MoEConfig`, :mod:`.moe`), the GPipe pipeline over ``pp``
+(:mod:`.pipeline`), and ring and all-to-all context parallelism over
+``sp`` (:mod:`.ring`, :mod:`.ulysses`).  ``python -m tputopo_torch
 allreduce|train|decode|serve|train-vision`` is the in-container entry
 point.  It imports neither JAX nor anything of ``tputopo``.
 """
@@ -26,7 +30,8 @@ from tputopo_torch.convert import params_from_numpy, train_state_from_numpy
 from tputopo_torch.data import TokenDataset
 from tputopo_torch.decode import KVCache, generate
 from tputopo_torch.distributed import initialize_from_env, process_group_from_env
-from tputopo_torch.model import ModelConfig, forward, init_params
+from tputopo_torch.model import ModelConfig, forward, forward_with_aux, init_params
+from tputopo_torch.moe import MoEConfig
 from tputopo_torch.quant import quantize_params, streamed_bytes
 from tputopo_torch.lora import init_lora, lora_view, merge_lora
 from tputopo_torch.serving import ServingEngine
@@ -37,9 +42,10 @@ from tputopo_torch.train import (TrainState, loss_fn, make_sharded_state,
 from tputopo_torch.validate import validate_slice
 from tputopo_torch.vision import VisionConfig, train_vision
 
-__all__ = ["AllReduceResult", "KVCache", "MeshPlan", "ModelConfig", "ServingEngine",
-           "SpecServingEngine", "TokenDataset", "TrainState", "VisionConfig",
-           "build_mesh", "forward", "generate", "init_lora", "init_params",
+__all__ = ["AllReduceResult", "KVCache", "MeshPlan", "ModelConfig", "MoEConfig",
+           "ServingEngine", "SpecServingEngine", "TokenDataset", "TrainState",
+           "VisionConfig", "build_mesh", "forward", "forward_with_aux", "generate",
+           "init_lora", "init_params",
            "initialize_from_env", "lora_view", "loss_fn", "make_sharded_state",
            "make_sharded_train_step", "make_train_state", "measure_allreduce",
            "merge_lora", "mesh_for_slice", "params_from_numpy", "plan_mesh",

@@ -32,16 +32,6 @@ import os
 import signal
 import sys
 
-#: Flags of the reference's ``train`` the port does not run yet, with the
-#: later slice each comes with: (attribute, is it set?, slice).
-_UNPORTED = (
-    ("--experts", lambda a: bool(a.experts), "the MoE slice (moe.py)"),
-    ("--ep", lambda a: a.ep > 1, "the MoE slice (moe.py)"),
-    ("--pp", lambda a: a.pp > 1, "the GPipe slice (pipeline.py)"),
-    ("--sp", lambda a: (a.sp or 1) > 1, "the ring/Ulysses context-parallel slice"),
-)
-
-
 def cmd_allreduce(args) -> int:
     from tputopo_torch.validate import validate_slice
 
@@ -79,20 +69,28 @@ def cmd_train(args) -> int:
     from tputopo_torch.train import (make_sharded_params, make_sharded_state,
                                      make_sharded_train_step)
 
-    for flag, is_set, later in _UNPORTED:
-        if is_set(args):
-            print(f"error: {flag} is not ported yet: it comes with {later} of "
-                  "tputopo_torch", file=sys.stderr)
-            return 2
     n = dist.get_world_size()
+    moe = None
+    if args.experts:
+        from tputopo_torch.moe import MoEConfig
+
+        moe = MoEConfig(n_experts=args.experts)
+    elif args.ep > 1:
+        print("error: --ep needs --experts (a dense model would replicate "
+              "over the ep axis and waste those chips)", file=sys.stderr)
+        return 2
     config = ModelConfig(vocab_size=2048, d_model=256, n_layers=4, n_heads=8,
-                         n_kv_heads=4, d_ff=512, max_seq=args.seq,
+                         n_kv_heads=4, d_ff=512, max_seq=args.seq, moe=moe,
                          sp_impl=args.sp_impl)
     accum = max(1, args.accum)
     specs = None  # the checkpoint's layout: the model's unless LoRA
     try:
         plan = mesh_for_slice((n,), device=args.device, heads=config.n_heads,
-                              tp=args.tp)
+                              pp=args.pp, ep=args.ep, sp=args.sp, tp=args.tp)
+        if config.n_layers % plan.size("pp"):
+            print(f"error: --pp {args.pp} must divide {config.n_layers} layers",
+                  file=sys.stderr)
+            return 2
         if args.lora_rank:
             # Parameter-efficient finetuning: the base tree is frozen (a
             # fresh init standing in for restored pretrained weights; point
@@ -122,15 +120,17 @@ def cmd_train(args) -> int:
             state = restored
             resumed_from = int(state.step)
     dp = plan.size("dp")
-    # Batch must shard over dp AND divide into accumulation microbatches.
-    q = dp * accum
+    # Batch must shard over dp, split into pp microbatches, AND divide into
+    # gradient-accumulation microbatches.
+    q = dp * plan.size("pp") * accum
     batch = max(q, args.batch // q * q)
     batch_for = None
     if args.data:
         # Real corpus: deterministic disjoint shards per (step, dp rank),
         # resumable from the checkpointed step.  One process drives one
         # GPU, so the data ranks are the dp coordinates: the ranks of one
-        # tp group read the same rows.
+        # tp (or ep, pp) group read the same rows, and an sp rank keeps its
+        # chunk of the sequence.
         from tputopo_torch.data import TokenDataset
 
         ds = TokenDataset(args.data, dtype=args.data_dtype)
@@ -143,7 +143,8 @@ def cmd_train(args) -> int:
 
         def batch_for(i: int) -> torch.Tensor:
             local = ds.batch(i, batch // dp, args.seq, rank=dp_rank, world=dp)
-            return torch.from_numpy(local).to(plan.device)
+            chunk = torch.from_numpy(local).chunk(plan.size("sp"), dim=1)[plan.rank("sp")]
+            return chunk.contiguous().to(plan.device)
 
     # Fixed synthetic batch otherwise: the convergence check is
     # memorization, which must always reduce loss.
@@ -442,15 +443,15 @@ def main(argv=None) -> int:
     p.add_argument("--tp", type=int, default=None,
                    help="tensor-parallel degree (default: policy)")
     p.add_argument("--sp", type=int, default=None,
-                   help="sequence-parallel degree (not ported yet above 1)")
+                   help="sequence-parallel degree (context parallelism)")
     p.add_argument("--sp-impl", choices=("ring", "a2a"), default="ring",
                    help="context-parallel strategy (acts only with --sp > 1)")
     p.add_argument("--pp", type=int, default=1,
-                   help="pipeline stages (not ported yet above 1)")
+                   help="pipeline stages (GPipe over the layer stack)")
     p.add_argument("--ep", type=int, default=1,
-                   help="expert-parallel degree (not ported yet above 1)")
+                   help="expert-parallel degree (requires --experts)")
     p.add_argument("--experts", type=int, default=0,
-                   help="MoE experts per layer (not ported yet)")
+                   help="MoE experts per layer (0 = dense FFN)")
     p.add_argument("--ckpt-dir", default=None,
                    help="checkpoint dir: resume if present, save at end "
                         "(and every --save-every steps)")

@@ -54,6 +54,12 @@ def _validate(q, k, v, causal, block_q, block_kv):
     return block_q, block_kv
 
 
+def head_dim_ok(h: int) -> bool:
+    """Whether the kernels take head dim ``h`` (a multiple of 8 in [8, 128]):
+    the rule by which an "auto" path picks them on a CUDA device."""
+    return h % 8 == 0 and 8 <= h <= 128
+
+
 # ---- plain versions -------------------------------------------------------
 
 def _scores(q, k, *, causal):

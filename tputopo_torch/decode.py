@@ -17,7 +17,9 @@ the reference does.
 
 Decoding policies: greedy (temperature 0, the default) and temperature
 sampling with optional top-k, drawn from a caller's ``torch.Generator``.
-MoE layers come with a later slice and raise here.
+The FFN of an MoE config is the drop-free mixture
+(:func:`~.moe.moe_mlp_reference`), the reference's serving semantics: the
+capacity-dispatch training path would drop tokens during a prefill.
 """
 
 from __future__ import annotations
@@ -141,10 +143,19 @@ def _block_hidden(params: dict, config: ModelConfig, tokens: torch.Tensor,
         _store_kv(cache.v[i], vs, v, start)
         out = _attend_cached(q, cache.k[i], cache.v[i], start, group, ks, vs)
         x = x + qdot(out.reshape(B, T, c.n_heads * c.head_dim), layer["wo"])
-        h2 = _rmsnorm(x, layer["mlp_norm"], c.norm_eps)
-        gate = F.silu(qdot(h2, layer["w_gate"]))
-        x = x + qdot(gate * qdot(h2, layer["w_up"]), layer["w_down"])
+        x = x + serving_ffn(_rmsnorm(x, layer["mlp_norm"], c.norm_eps), layer, c)
     return x
+
+
+def serving_ffn(h: torch.Tensor, layer: dict, config: ModelConfig) -> torch.Tensor:
+    """One layer's FFN on the serving paths: the dense SwiGLU, or the
+    drop-free expert mixture of an MoE config."""
+    if config.moe is not None:
+        from tputopo_torch.moe import moe_mlp_reference
+
+        return moe_mlp_reference(h, layer["moe"], config)
+    gate = F.silu(qdot(h, layer["w_gate"]))
+    return qdot(gate * qdot(h, layer["w_up"]), layer["w_down"])
 
 
 def _select(logits: torch.Tensor, temperature: float, top_k: int | None,

@@ -30,10 +30,11 @@ over tp, as the sharded step does for the whole ``wk``/``wv``.  Row-parallel
 targets (``wo``, ``w_down``) are rejected: their inputs arrive tp-sharded,
 and the adapter contraction would need its own all-reduce.
 
-The pipelined step (``pp > 1``) comes with the GPipe slice and raises.
-Random draws come from a ``torch.Generator``, so they cannot match
-``jax.random``'s; parity tests carry an adapter across from numpy
-(:func:`~.convert.lora_from_numpy`).
+Under ``pp > 1`` the adapter's step runs the forward through the GPipe
+pipeline (:mod:`.pipeline`), the adapter's leading layer axis split over
+``pp`` with the base's.  Random draws come from a ``torch.Generator``, so
+they cannot match ``jax.random``'s; parity tests carry an adapter across
+from numpy (:func:`~.convert.lora_from_numpy`).
 """
 
 from __future__ import annotations
@@ -163,8 +164,8 @@ def lora_shardings(plan: shardlib.MeshPlan, lora: dict, config: ModelConfig | No
 
 
 def _lora_loss(base_params: dict, adapter: dict, tokens: torch.Tensor,
-               config: ModelConfig) -> torch.Tensor:
-    return loss_fn(lora_view(base_params, adapter), tokens, config)
+               config: ModelConfig, n_micro: int | None = None) -> torch.Tensor:
+    return loss_fn(lora_view(base_params, adapter), tokens, config, n_micro)
 
 
 def lora_train_step(state: TrainState, base_params: dict, tokens: torch.Tensor,
@@ -192,12 +193,9 @@ def make_sharded_lora_train_step(plan: shardlib.MeshPlan, config: ModelConfig,
     ``tokens`` this rank's block of the batch.  Local loss and adapter
     grads, the replicated leaves' grads summed over tp, then every grad's
     mean over dp, then AdamW on the adapter shards in place; the global
-    loss is returned.  ``lora`` gives the adapter's structure.  The
-    pipelined forward (pp > 1, ``n_micro``) comes with the GPipe slice."""
-    plan.check_supported()
-    if n_micro is not None:
-        raise NotImplementedError("n_micro schedules the GPipe pipeline, which "
-                                  "comes with the GPipe slice (pipeline.py)")
+    loss is returned.  ``lora`` gives the adapter's structure.  When the
+    plan has pp > 1 the forward runs the GPipe pipeline with ``n_micro``
+    microbatches (default pp), as the model's sharded step does."""
     specs = _leaves(lora_shardings(plan, lora, config))
     tp_partial = tuple(n for n, spec in zip(_leaf_names(lora), specs)
                        if "tp" not in spec)
@@ -207,7 +205,8 @@ def make_sharded_lora_train_step(plan: shardlib.MeshPlan, config: ModelConfig,
              tokens: torch.Tensor) -> tuple[TrainState, torch.Tensor]:
         loss, grads = sharded_loss_and_grads(
             plan, state.params, tokens, config, accum_steps,
-            loss=functools.partial(_lora_loss, base_params), tp_partial=tp_partial)
+            loss=functools.partial(_lora_loss, base_params, n_micro=n_micro),
+            tp_partial=tp_partial)
         opt.update_(grads, state.opt_state, state.params)
         return TrainState(params=state.params, opt_state=state.opt_state,
                           step=state.step + 1), loss
@@ -222,7 +221,6 @@ def make_sharded_lora_state(plan: shardlib.MeshPlan, config: ModelConfig,
     """This rank's shards of a fresh adapter TrainState on the plan's
     device: :func:`init_lora` from ``seed`` (every rank draws the same
     tree), cut per :func:`lora_shardings`, zeroed AdamW moments."""
-    plan.check_supported()
     lora = init_lora(config, seed, rank=rank, alpha=alpha, targets=targets,
                      device=plan.device)
     params = shardlib.shard_tree(lora, lora_shardings(plan, lora, config), plan)

@@ -35,12 +35,17 @@ attention, through the flash kernels, on its ``n_heads / tp`` heads.  When
 tp does not divide the kv heads, ``wk``/``wv`` stay whole on every rank and
 each rank takes the kv heads its q heads read (:func:`.sharding.kv_replicated`).
 
-What the port leaves out so far raises ``NotImplementedError``: MoE
-layers (``moe``) and plans with ``pp``, ``sp`` or ``ep`` above 1.  The reference's context-parallel strategies (``sp_impl``)
-act only under a plan with ``sp > 1``; the port keeps the field and its
-eager check so configs carry over.  The reference's ``constrain``
-annotations are the identity here (:func:`.sharding.constrain`): the
-collectives above carry the layout.
+An MoE config (``moe``, :mod:`.moe`) replaces every layer's FFN by the
+expert layer, whose experts split over the plan's ``ep`` axis.  Under a
+plan with ``sp > 1`` each rank holds a chunk of the sequence: RoPE takes
+the chunk's global positions, and ``attn_impl="auto"`` runs the
+context-parallel strategy ``sp_impl`` names, ring (:mod:`.ring`) or
+all-to-all (:mod:`.ulysses`), as the reference's ``_ring_plan`` does; a
+forced ``"flash"`` or ``"einsum"`` gathers the sequence and attends over
+all of it.  Under ``pp > 1`` the layer stack runs as the GPipe pipeline
+(:mod:`.pipeline`).  The reference's ``constrain`` annotations are the
+identity here (:func:`.sharding.constrain`): the collectives above carry
+the layout.
 
 Entry points run on ``cuda`` unless the caller asks for the CPU
 (``device="cpu"``); with no GPU and no such request they raise.
@@ -58,7 +63,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from tputopo_torch.attention import flash_attention
+from tputopo_torch.attention import flash_attention, head_dim_ok
 from tputopo_torch.quant import deq_rows, is_quantized, qdot
 
 
@@ -127,9 +132,6 @@ class ModelConfig:
 
 
 def _check_supported(c: ModelConfig) -> None:
-    if c.moe is not None:
-        raise NotImplementedError("MoE layers are not ported yet: they come "
-                                  "with the MoE slice of tputopo_torch")
     if c.remat not in c.REMATS:
         raise ValueError(f"unknown remat policy {c.remat!r}")
 
@@ -157,22 +159,28 @@ def init_params(config: ModelConfig, seed: int = 0, *, device=None,
 
     L, D, H, KV, Hd, Fd = (c.n_layers, c.d_model, c.n_heads, c.n_kv_heads,
                            c.head_dim, c.d_ff)
-    return {  # the dict order is the draw order
-        "embed": dense_init(("embed",), (c.vocab_size, D), D),
-        "layers": {
-            "attn_norm": norm_init(("layers", "attn_norm"), (L, D)),
-            "wq": dense_init(("layers", "wq"), (L, D, H * Hd), D),
-            "wk": dense_init(("layers", "wk"), (L, D, KV * Hd), D),
-            "wv": dense_init(("layers", "wv"), (L, D, KV * Hd), D),
-            "wo": dense_init(("layers", "wo"), (L, H * Hd, D), H * Hd),
-            "mlp_norm": norm_init(("layers", "mlp_norm"), (L, D)),
-            "w_gate": dense_init(("layers", "w_gate"), (L, D, Fd), D),
-            "w_up": dense_init(("layers", "w_up"), (L, D, Fd), D),
-            "w_down": dense_init(("layers", "w_down"), (L, Fd, D), Fd),
-        },
-        "final_norm": norm_init(("final_norm",), (D,)),
-        "lm_head": dense_init(("lm_head",), (D, c.vocab_size), D),
+    # the dict order is the draw order
+    embed = dense_init(("embed",), (c.vocab_size, D), D)
+    layers = {
+        "attn_norm": norm_init(("layers", "attn_norm"), (L, D)),
+        "wq": dense_init(("layers", "wq"), (L, D, H * Hd), D),
+        "wk": dense_init(("layers", "wk"), (L, D, KV * Hd), D),
+        "wv": dense_init(("layers", "wv"), (L, D, KV * Hd), D),
+        "wo": dense_init(("layers", "wo"), (L, H * Hd, D), H * Hd),
+        "mlp_norm": norm_init(("layers", "mlp_norm"), (L, D)),
     }
+    if c.moe is not None:
+        from tputopo_torch.moe import init_moe_params
+
+        layers["moe"] = init_moe_params(c, dense=lambda name, shape, fan_in: dense_init(
+            ("layers", "moe", name), shape, fan_in))
+    else:
+        layers["w_gate"] = dense_init(("layers", "w_gate"), (L, D, Fd), D)
+        layers["w_up"] = dense_init(("layers", "w_up"), (L, D, Fd), D)
+        layers["w_down"] = dense_init(("layers", "w_down"), (L, Fd, D), Fd)
+    return {"embed": embed, "layers": layers,
+            "final_norm": norm_init(("final_norm",), (D,)),
+            "lm_head": dense_init(("lm_head",), (D, c.vocab_size), D)}
 
 
 def _rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -219,15 +227,43 @@ def _attention(x: torch.Tensor, p: dict, config: ModelConfig,
     q = _apply_rope(q, cos, sin)
     k = _apply_rope(k, cos, sin)
     group = c.n_heads // c.n_kv_heads
+    kv_group = group
     if tp is not None and tp.kv_replicated:
         # this rank's q head i is global head rank * n_heads + i, which
         # reads kv head (rank * n_heads + i) // group of the whole set
         idx = (torch.arange(n_heads, device=x.device) + tp.rank * n_heads) // group
-        k, v = k[:, :, idx], v[:, :, idx]
-    elif group > 1:
+        k, v, kv_group = k[:, :, idx], v[:, :, idx], 1
+
+    plan = _ring_plan(c)
+    if plan is not None:
+        # Context parallelism: the sequence stays split over sp.  The
+        # narrow GQA K/V travels (rotates around the ring, or crosses the
+        # all-to-all) when its local head count allows, else it is
+        # expanded first.
+        from tputopo_torch.ring import ring_attention
+
+        attn = ring_attention
+        if c.sp_impl == "a2a":
+            from tputopo_torch.ulysses import a2a_attention
+
+            if kv_group > 1 and k.shape[2] % plan.size("sp"):
+                k = k.repeat_interleave(kv_group, dim=2)
+                v = v.repeat_interleave(kv_group, dim=2)
+                kv_group = 1
+            attn = a2a_attention
+        out = attn(q, k, v, plan, causal=True, kv_group=kv_group)
+        out = qdot(out.reshape(B, S, n_heads * c.head_dim), p["wo"])
+        return out if tp is None else reduce_from_tp(out, tp.group)
+
+    if kv_group > 1:
         # query head n reads kv head n // group (jnp.repeat's order)
-        k = k.repeat_interleave(group, dim=2)
-        v = v.repeat_interleave(group, dim=2)
+        k = k.repeat_interleave(kv_group, dim=2)
+        v = v.repeat_interleave(kv_group, dim=2)
+    sp_plan = _sp_plan()
+    if sp_plan is not None:
+        # a forced attn_impl under sp: attend over the whole sequence
+        q, k, v = (_GatherSeq.apply(t, sp_plan) for t in (q, k, v))
+        S = q.shape[1]
 
     if _use_flash(c, S, x.device):
         out = _flash_dispatch(q, k, v)
@@ -239,8 +275,46 @@ def _attention(x: torch.Tensor, p: dict, config: ModelConfig,
                                     torch.finfo(logits.dtype).min)
         probs = torch.softmax(logits.float(), dim=-1).to(x.dtype)
         out = torch.einsum("bnqk,bknh->bqnh", probs, v)
+    if sp_plan is not None:
+        out = out.chunk(sp_plan.size("sp"), dim=1)[sp_plan.rank("sp")]
+        S = out.shape[1]
     out = qdot(out.reshape(B, S, n_heads * c.head_dim), p["wo"])
     return out if tp is None else reduce_from_tp(out, tp.group)
+
+
+def _sp_plan():
+    """The active plan when it splits the sequence (sp > 1), else None."""
+    from tputopo_torch.sharding import active_plan
+
+    plan = active_plan()
+    return plan if plan is not None and plan.size("sp") > 1 else None
+
+
+def _ring_plan(c: ModelConfig):
+    """The active plan when context-parallel attention applies: attn_impl
+    "auto" and sp > 1 (this rank's chunk divides evenly by construction:
+    :func:`~.sharding.local_batch` splits it).  A forced "flash" or
+    "einsum" keeps its documented meaning and never reroutes here."""
+    return _sp_plan() if c.attn_impl == "auto" else None
+
+
+class _GatherSeq(torch.autograd.Function):
+    """The sequence chunks of every sp rank, in rank order, forward; the
+    sum over sp of the gradient, this rank's chunk of it, backward (the
+    objective sums the sp ranks' losses)."""
+
+    @staticmethod
+    def forward(ctx, x, plan):
+        from tputopo_torch.sharding import all_gather
+
+        ctx.plan = plan
+        return torch.cat(all_gather(x, plan.group("sp")), dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        plan = ctx.plan
+        g = all_reduce_f32(g, plan.group("sp"))
+        return g.chunk(plan.size("sp"), dim=1)[plan.rank("sp")].contiguous(), None
 
 
 def _use_flash(c: ModelConfig, seq: int, device: torch.device) -> bool:
@@ -259,9 +333,9 @@ def _use_flash(c: ModelConfig, seq: int, device: torch.device) -> bool:
     if c.attn_impl != "auto":
         raise ValueError(f"unknown attn_impl {c.attn_impl!r}")
     # The same shape rule that picks the kernel on a TPU, on a CUDA card,
-    # and the head dims the kernels take (a multiple of 8 in [8, 128]).
-    head_ok = c.head_dim % 8 == 0 and 8 <= c.head_dim <= 128
-    return block == 128 and shapes_ok and head_ok and device.type == "cuda"
+    # and the head dims the kernels take.
+    return (block == 128 and shapes_ok and head_dim_ok(c.head_dim)
+            and device.type == "cuda")
 
 
 def _flash_dispatch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -284,13 +358,20 @@ def transformer_block(x: torch.Tensor, layer: dict, config: ModelConfig,
                       cos: torch.Tensor, sin: torch.Tensor, tp=None
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """One decoder layer: (x, one layer's params) -> (x, aux loss), aux 0
-    for the dense FFN.  ``tp`` (:func:`tp_context`) runs it on this rank's
-    shards."""
+    for the dense FFN and the router's load-balancing loss for an MoE
+    layer.  ``tp`` (:func:`tp_context`) runs it on this rank's shards."""
     c = config
     h = x + _attention(_rmsnorm(x, layer["attn_norm"], c.norm_eps), layer, c,
                        cos, sin, tp)
-    y = _mlp(_rmsnorm(h, layer["mlp_norm"], c.norm_eps), layer, tp)
-    return h + y, torch.zeros((), dtype=torch.float32, device=x.device)
+    pre = _rmsnorm(h, layer["mlp_norm"], c.norm_eps)
+    if c.moe is not None:
+        from tputopo_torch.moe import moe_mlp
+
+        y, aux = moe_mlp(pre, layer["moe"], c, tp)
+    else:
+        y, aux = _mlp(pre, layer, tp), torch.zeros((), dtype=torch.float32,
+                                                   device=x.device)
+    return h + y, aux
 
 
 def _layer(layers: dict, i: int) -> dict:
@@ -380,27 +461,51 @@ def lm_head(params: dict, x: torch.Tensor, config: ModelConfig,
     return x.float() @ w.to(config.compute_dtype).float()
 
 
+def rope_for_rank(config: ModelConfig, seq: int, device) -> tuple:
+    """The RoPE tables of this rank's ``seq`` positions: under an active
+    plan with sp > 1 the sequence is split over sp, and the chunk of rank
+    ``r`` holds the global positions ``r * seq ...``."""
+    plan = _sp_plan()
+    if plan is None:
+        return _rope_tables(config, seq, device)
+    cos, sin = _rope_tables(config, seq * plan.size("sp"), device)
+    r = plan.rank("sp")
+    return cos[r * seq:(r + 1) * seq], sin[r * seq:(r + 1) * seq]
+
+
 def trunk(params: dict, tokens: torch.Tensor, config: ModelConfig,
-          tp=None) -> tuple[torch.Tensor, torch.Tensor]:
+          tp=None, n_micro: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Token ids [B, S] -> (the last layer's output [B, S, D] in
-    ``compute_dtype``, aux loss scalar), on the device of ``params``."""
+    ``compute_dtype``, aux loss scalar), on the device of ``params``.
+    Under an active plan with pp > 1 the layers run as the GPipe pipeline
+    with ``n_micro`` microbatches (:mod:`.pipeline`)."""
+    from tputopo_torch.sharding import active_plan
+
+    plan = active_plan()
+    if plan is not None and plan.size("pp") > 1:
+        from tputopo_torch.pipeline import pipelined_trunk
+
+        return pipelined_trunk(params, tokens, config, plan, n_micro, tp)
     c = config
     device = params["final_norm"].device
     tokens = torch.as_tensor(tokens, device=device)
-    cos, sin = _rope_tables(c, tokens.shape[1], device)
+    cos, sin = rope_for_rank(c, tokens.shape[1], device)
     x = embed_tokens(params, tokens, c)
     return _block_loop(x, params["layers"], c, cos, sin, tp)
 
 
-def forward_with_aux(params: dict, tokens: torch.Tensor,
-                     config: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+def forward_with_aux(params: dict, tokens: torch.Tensor, config: ModelConfig,
+                     n_micro: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Token ids [B, S] -> (logits [B, S, vocab] f32, aux loss scalar), on
     the device that holds ``params``; differentiable in the parameters.
-    Under an active plan with tp > 1, ``params`` are this rank's shards
-    and the vocab blocks are gathered into whole logits."""
+    Under an active plan, ``params`` are this rank's shards and ``tokens``
+    its block of the batch (:func:`~.sharding.local_batch`): the logits
+    are those of its rows and, under sp, of its chunk of the sequence,
+    with the vocab blocks of tp > 1 gathered whole.  ``n_micro`` sets the
+    GPipe microbatches under pp > 1 (:func:`trunk`)."""
     _check_supported(config)
     tp = tp_context(config)
-    x, aux = trunk(params, tokens, config, tp)
+    x, aux = trunk(params, tokens, config, tp, n_micro)
     logits = lm_head(params, x, config, tp)
     if tp is not None:
         logits = _GatherFromTP.apply(logits, tp)
@@ -427,13 +532,12 @@ class TensorParallel:
 def tp_context(config: ModelConfig) -> TensorParallel | None:
     """The tp group of the active plan (:func:`.sharding.activate`), or
     None when no plan is active or tp is 1.  Raises for what the split
-    cannot take and for the axes the port does not run yet."""
+    cannot take."""
     from tputopo_torch.sharding import active_plan, kv_replicated
 
     plan = active_plan()
     if plan is None:
         return None
-    plan.check_supported()
     tp = plan.size("tp")
     if tp == 1:
         return None

@@ -117,12 +117,12 @@ def quantize_params(params: dict, *, bits: int = 8,
                 else _quantize_leaf4(w, group_size))
 
     layers = dict(params["layers"])
-    if "moe" in layers:
-        raise NotImplementedError("MoE layers are not ported yet: they come "
-                                  "with the MoE slice of tputopo_torch")
     for name in _LAYER_WEIGHTS:
         if name in layers:
             layers[name] = mat(layers[name])
+    if "moe" in layers:  # the expert tables; the router stays float32
+        layers["moe"] = dict(layers["moe"], **{
+            name: mat(layers["moe"][name]) for name in ("w_gate", "w_up", "w_down")})
     out = dict(params)
     out["layers"] = layers
     out["embed"] = _quantize_leaf(params["embed"], axis=-1)

@@ -38,8 +38,8 @@ device.  Sampling draws from a caller's ``torch.Generator`` on the
 parameters' device, as :func:`.decode.generate` does: the reference's
 ``fold_in(key, step)`` stream cannot be reproduced draw for draw, so the
 state keeps no step counter.  The reference's sharding constraints are
-the identity on one card and are dropped; MoE configs raise, as in the
-rest of the port.
+the identity on one card and are dropped.  An MoE config's FFN is the
+drop-free mixture, as in :mod:`.decode`.
 """
 
 from __future__ import annotations
@@ -48,9 +48,8 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
-from tputopo_torch.decode import KVCache, _block_hidden, _select
+from tputopo_torch.decode import KVCache, _block_hidden, _select, serving_ffn
 from tputopo_torch.model import (ModelConfig, _check_supported, _layer,
                                  _rmsnorm, _rope_tables, lm_head,
                                  resolve_device)
@@ -315,9 +314,7 @@ def ragged_hidden(params: dict, config: ModelConfig, tokens: torch.Tensor,
         _write_kv_at(cache.v[i], v, starts)
         out = _attend_ragged(q, cache.k[i], cache.v[i], starts, group, cks, cvs)
         x = x + qdot(out.reshape(B, T, c.n_heads * c.head_dim), layer["wo"])
-        h2 = _rmsnorm(x, layer["mlp_norm"], c.norm_eps)
-        gate = F.silu(qdot(h2, layer["w_gate"]))
-        x = x + qdot(gate * qdot(h2, layer["w_up"]), layer["w_down"])
+        x = x + serving_ffn(_rmsnorm(x, layer["mlp_norm"], c.norm_eps), layer, c)
     return x
 
 

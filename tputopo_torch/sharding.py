@@ -18,10 +18,16 @@ into this rank's shards and :func:`gather_tree` puts it back together.
 :func:`constrain` stays the identity: a layout in the port is carried by
 those explicit collectives, not by annotations.
 
-Only the dense layout over ``dp`` and ``tp`` runs here; ``pp``, ``sp`` and
-``ep`` above 1 come with later slices of the port (GPipe, ring/Ulysses
-attention, MoE) and raise ``NotImplementedError`` in the model and the
-step.
+Every axis runs: ``dp`` and ``tp`` in the model and the step, ``ep`` in
+:mod:`tputopo_torch.moe`, ``sp`` in :mod:`tputopo_torch.ring` and
+:mod:`tputopo_torch.ulysses`, ``pp`` in :mod:`tputopo_torch.pipeline`.  The
+point-to-point and all-to-all traffic of those goes through the helpers at
+the end of this module (:func:`exchange`, :func:`all_to_all`,
+:func:`all_gather`, :func:`broadcast`), which NCCL carries directly.  Gloo
+carries ``all_reduce`` on CUDA tensors but not those, so under gloo the
+helpers stage a CUDA tensor through host memory, explicitly: a CPU copy
+goes over the wire and the result is copied back (:data:`HOST_STAGED`
+counts these calls).
 """
 
 from __future__ import annotations
@@ -37,11 +43,6 @@ from torch.distributed.device_mesh import DeviceMesh
 # Logical mesh axes, outermost to innermost, in the reference's order: tp
 # (per-token collectives, the chattiest) innermost, pp outermost.
 AXES = ("pp", "dp", "sp", "ep", "tp")
-
-#: The later slice of the port that brings each axis the port cannot run yet.
-LATER_SLICE = {"pp": "the GPipe slice (pipeline.py)",
-               "sp": "the ring/Ulysses context-parallel slice",
-               "ep": "the MoE slice (moe.py)"}
 
 
 @dataclass
@@ -83,13 +84,10 @@ class MeshPlan:
     def replicated(self) -> tuple:
         return ()
 
-    def check_supported(self) -> None:
-        """Raise for the axes the port does not run yet."""
-        for axis, later in LATER_SLICE.items():
-            if self.size(axis) > 1:
-                raise NotImplementedError(
-                    f"{axis}={self.size(axis)} is not ported yet: it comes "
-                    f"with {later} of tputopo_torch")
+    def peer(self, axis: str, coord: int) -> int:
+        """The global rank of the peer at ``coord`` along ``axis`` (this
+        rank's coordinates on the other axes)."""
+        return dist.get_global_rank(self.group(axis), coord % self.size(axis))
 
 
 _ACTIVE: MeshPlan | None = None
@@ -98,7 +96,8 @@ _ACTIVE: MeshPlan | None = None
 @contextmanager
 def activate(plan: MeshPlan):
     """Make ``plan`` the active plan within the block: the model then runs
-    its tensor-parallel path over the plan's ``tp`` group."""
+    its tensor-, expert-, context- and pipeline-parallel paths over the
+    plan's groups."""
     global _ACTIVE
     prev = _ACTIVE
     _ACTIVE = plan
@@ -182,13 +181,13 @@ def param_specs(plan: MeshPlan, config=None) -> dict:
     """Megatron-style tp layout of the model's parameter tree, as axis
     names per dimension: ``wq``/``wk``/``wv``/``w_gate``/``w_up`` split
     their output features (column parallel), ``wo``/``w_down`` their input
-    features (row parallel), ``lm_head`` the vocab.  The reference's
-    layout exactly, with one deviation: where :func:`kv_replicated`,
-    ``wk``/``wv`` are replicated (the reference lets XLA reshard a split
-    that cuts kv heads apart)."""
-    if config is not None and config.moe is not None:
-        raise NotImplementedError("the MoE layout is not ported yet: it comes "
-                                  "with the MoE slice (moe.py) of tputopo_torch")
+    features (row parallel), ``lm_head`` the vocab; the stacked layer axis
+    over ``pp`` (each stage holds its own layers).  Under an MoE config
+    the FFN leaves are ``moe``'s: the router replicated, the expert tables
+    split over ``ep`` on the expert axis and over ``tp`` on ``d_ff``.  The
+    reference's layout exactly, with one deviation: where
+    :func:`kv_replicated`, ``wk``/``wv`` are replicated (the reference lets
+    XLA reshard a split that cuts kv heads apart)."""
     s = plan.spec
     pp = "pp" if plan.size("pp") > 1 else None
 
@@ -196,19 +195,30 @@ def param_specs(plan: MeshPlan, config=None) -> dict:
         return s(pp, *names)
 
     kv = layer(None, None) if kv_replicated(plan, config) else layer(None, "tp")
-    return {
-        "embed": s(None, None),
-        "layers": {
-            "attn_norm": layer(None),
-            "wq": layer(None, "tp"),
-            "wk": kv,
-            "wv": kv,
-            "wo": layer("tp", None),
-            "mlp_norm": layer(None),
+    layers = {
+        "attn_norm": layer(None),
+        "wq": layer(None, "tp"),
+        "wk": kv,
+        "wv": kv,
+        "wo": layer("tp", None),
+        "mlp_norm": layer(None),
+    }
+    if config is not None and config.moe is not None:
+        layers["moe"] = {
+            "router": layer(None, None),
+            "w_gate": layer("ep", None, "tp"),
+            "w_up": layer("ep", None, "tp"),
+            "w_down": layer("ep", "tp", None),
+        }
+    else:
+        layers.update({
             "w_gate": layer(None, "tp"),
             "w_up": layer(None, "tp"),
             "w_down": layer("tp", None),
-        },
+        })
+    return {
+        "embed": s(None, None),
+        "layers": layers,
         "final_norm": s(None),
         "lm_head": s(None, "tp"),
     }
@@ -266,3 +276,74 @@ def shard_tree(tree: dict, specs: dict, plan: MeshPlan) -> dict:
 def gather_tree(tree: dict, specs: dict, plan: MeshPlan) -> dict:
     """The full tree back from every rank's blocks."""
     return _map(lambda t, s: gather_leaf(t, s, plan), tree, specs)
+
+
+# ---- point-to-point and all-to-all traffic ----------------------------------
+
+#: Calls of the helpers below that staged CUDA tensors through host memory
+#: (gloo), and the bytes they staged: read by ``chip_smoke.py``'s rank cases.
+HOST_STAGED = {"calls": 0, "bytes": 0}
+
+
+def _host_staged(group, tensors) -> bool:
+    """Whether a collective over ``group`` must stage ``tensors`` through
+    host memory: gloo carries all_reduce on CUDA tensors, but not the
+    point-to-point, all-to-all, all-gather and broadcast calls here."""
+    if not any(t.is_cuda for t in tensors) or dist.get_backend(group) != "gloo":
+        return False
+    HOST_STAGED["calls"] += 1
+    HOST_STAGED["bytes"] += sum(t.numel() * t.element_size() for t in tensors)
+    return True
+
+
+def exchange(plan: MeshPlan, axis: str, sends: list, recvs: list) -> None:
+    """Point-to-point over ``axis``'s group, all posted at once and waited
+    for: ``sends`` holds (tensor, coordinate it goes to) pairs, ``recvs``
+    (buffer, coordinate it is filled from) pairs, filled in place."""
+    group = plan.group(axis)
+    staged = _host_staged(group, [t for t, _ in sends + recvs])
+    wire_sends = [(t.cpu() if staged else t.contiguous(), c) for t, c in sends]
+    wire_recvs = [(t if t.is_contiguous() and not staged else
+                   torch.empty(t.shape, dtype=t.dtype, device="cpu" if staged else t.device), c)
+                  for t, c in recvs]
+    ops = [dist.P2POp(dist.isend, t, plan.peer(axis, c), group) for t, c in wire_sends]
+    ops += [dist.P2POp(dist.irecv, t, plan.peer(axis, c), group) for t, c in wire_recvs]
+    for work in dist.batch_isend_irecv(ops) if ops else ():
+        work.wait()
+    for (t, _), (w, _) in zip(recvs, wire_recvs):
+        if w is not t:
+            t.copy_(w)
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """``all_to_all_single`` with equal splits of dim 0 (one block per
+    rank, block ``j`` to rank ``j``; block ``r`` of the result from rank
+    ``r``), as a fresh tensor."""
+    x = x.contiguous()
+    if _host_staged(group, [x]):
+        out = torch.empty_like(x, device="cpu")
+        dist.all_to_all_single(out, x.cpu(), group=group)
+        return out.to(x.device)
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+def all_gather(x: torch.Tensor, group) -> list[torch.Tensor]:
+    """Every rank's ``x`` over ``group``, in rank order."""
+    x = x.contiguous()
+    staged = _host_staged(group, [x])
+    src = x.cpu() if staged else x
+    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, src, group=group)
+    return [p.to(x.device) for p in parts] if staged else parts
+
+
+def broadcast(x: torch.Tensor, src: int, group) -> torch.Tensor:
+    """``x`` from global rank ``src`` of ``group`` on every rank, in place."""
+    if _host_staged(group, [x]):
+        host = x.cpu()
+        dist.broadcast(host, src=src, group=group)
+        return x.copy_(host)
+    dist.broadcast(x, src=src, group=group)
+    return x

@@ -1,5 +1,5 @@
 """Training step for the flagship LM — the counterpart of
-``tputopo/workloads/train.py``, on one device and sharded DP x TP.
+``tputopo/workloads/train.py``, on one device and sharded over a mesh plan.
 
 :func:`train_step` is forward, next-token cross-entropy, grads and one
 AdamW update, with optional gradient accumulation over microbatches.  The
@@ -19,12 +19,18 @@ and its dp block of the batch (:func:`~.sharding.local_batch`): local loss
 and grads, with the model's tensor-parallel collectives when tp > 1 and a
 vocab-parallel cross-entropy (:func:`vocab_parallel_nll`), then the grads'
 sum over dp divided by dp, then AdamW on the local shards.  AdamW is
-elementwise and clips nothing, so the update is the unsharded one.  The
-pipelined and MoE steps come with later slices.
+elementwise and clips nothing, so the update is the unsharded one.
+
+The other axes keep that shape.  Under ``ep`` (MoE experts) and ``pp``
+(the GPipe pipeline, ``n_micro`` microbatches) the loss is the same on
+every rank, as under ``tp``.  Under ``sp`` each rank holds a chunk of the
+sequence and its loss is its chunk's share of the global next-token mean;
+the step sums loss and grads over ``sp`` before the mean over ``dp``.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -33,8 +39,8 @@ import torch.nn.functional as F
 
 from tputopo_torch import sharding as shardlib
 from tputopo_torch.model import (ModelConfig, _check_supported, all_reduce_f32,
-                                 forward_with_aux, init_params, lm_head,
-                                 reduce_from_tp, resolve_device, tp_context, trunk)
+                                 init_params, lm_head, reduce_from_tp,
+                                 resolve_device, tp_context, trunk)
 
 
 @dataclass
@@ -134,23 +140,45 @@ def make_train_state(config: ModelConfig, seed: int = 0, lr: float = 3e-4, *,
                       step=torch.zeros((), dtype=torch.int32, device=dev))
 
 
-def loss_fn(params: dict, tokens: torch.Tensor, config: ModelConfig) -> torch.Tensor:
+def loss_fn(params: dict, tokens: torch.Tensor, config: ModelConfig,
+            n_micro: int | None = None) -> torch.Tensor:
     """Next-token cross-entropy over [B, S] token ids (last position
     dropped), from an f32 ``log_softmax``, plus the auxiliary loss.  Under
-    an active plan with tp > 1, ``params`` are this rank's shards and the
-    loss is :func:`vocab_parallel_nll`'s, the same on every tp rank."""
+    an active plan, ``params`` are this rank's shards and ``tokens`` its
+    block of the batch: with tp > 1 the cross-entropy is
+    :func:`vocab_parallel_nll`'s, the same on every tp rank; with sp > 1
+    ``tokens`` is this rank's chunk of the sequence, whose last position
+    targets the next chunk's first token, and the loss is the chunk's share
+    of the mean over all ``B * (S - 1)`` positions plus ``aux / sp``, so
+    that the sum over sp is the global loss.  ``n_micro`` sets the GPipe
+    microbatches under pp > 1."""
+    from tputopo_torch.sharding import active_plan
+
+    _check_supported(config)
     tp = tp_context(config)
+    x, aux = trunk(params, tokens, config, tp, n_micro)
+    logits = lm_head(params, x, config, tp)  # [B, S, V] f32, V / tp under tp
+    tokens = torch.as_tensor(tokens, device=logits.device)
+    plan = active_plan()
+    sp = plan.size("sp") if plan is not None else 1
+    if sp == 1:
+        logits, targets = logits[:, :-1], tokens[:, 1:]
+    else:
+        from tputopo_torch.sharding import all_gather
+
+        r = plan.rank("sp")
+        firsts = all_gather(tokens[:, 0], plan.group("sp"))
+        targets = torch.cat([tokens[:, 1:], firsts[(r + 1) % sp][:, None]], dim=1)
+        if r == sp - 1:  # the sequence's last position has no target
+            logits, targets = logits[:, :-1], targets[:, :-1]
     if tp is not None:
-        _check_supported(config)
-        x, aux = trunk(params, tokens, config, tp)
-        logits = lm_head(params, x, config, tp)  # [B, S, V / tp] f32
-        targets = torch.as_tensor(tokens, device=logits.device)[:, 1:]
-        return vocab_parallel_nll(logits[:, :-1], targets, tp).mean() + aux
-    logits, aux = forward_with_aux(params, tokens, config)  # [B, S, V] f32
-    targets = torch.as_tensor(tokens, device=logits.device)[:, 1:]
-    logp = F.log_softmax(logits[:, :-1], dim=-1)
-    nll = -logp.gather(-1, targets[..., None])[..., 0]
-    return nll.mean() + aux
+        nll = vocab_parallel_nll(logits, targets, tp)
+    else:
+        nll = -F.log_softmax(logits, dim=-1).gather(-1, targets[..., None])[..., 0]
+    if sp == 1:
+        return nll.mean() + aux
+    B, Sc = tokens.shape
+    return nll.sum() / (B * (Sc * sp - 1)) + aux / sp
 
 
 def loss_and_grads(params: dict, tokens: torch.Tensor, config: ModelConfig,
@@ -270,8 +298,9 @@ def sharded_loss_and_grads(plan: shardlib.MeshPlan, params: dict,
     ``tp_partial`` names the leaves (dotted, :func:`_leaf_names`) whose
     local grad is a partial sum over the tp ranks, summed here: by default
     ``wk``/``wv`` when they are kept whole (:func:`~.sharding.kv_replicated`),
-    each tp rank holding their grad from its own q heads only."""
-    plan.check_supported()
+    each tp rank holding their grad from its own q heads only.  Under sp
+    the loss and every grad are summed over sp (no leaf is split over sp,
+    and each rank's are its chunk's share)."""
     with shardlib.activate(plan):
         value, grads = accumulated_loss_and_grads(params, tokens, config,
                                                   accum_steps, loss)
@@ -282,6 +311,11 @@ def sharded_loss_and_grads(plan: shardlib.MeshPlan, params: dict,
         for name, g in zip(_leaf_names(params), grads):
             if name in tp_partial:
                 dist.all_reduce(g, group=plan.group("tp"))
+    if plan.size("sp") > 1:
+        group = plan.group("sp")
+        value = all_reduce_f32(value.reshape(1), group)[0]
+        for g in grads:
+            dist.all_reduce(g, group=group)
     return dp_mean_(plan, value, grads), grads
 
 
@@ -310,19 +344,18 @@ def make_sharded_train_step(plan: shardlib.MeshPlan, config: ModelConfig,
     """The step over ``plan``: ``step(state, tokens) -> (state, loss)``
     with ``state`` this rank's shards and ``tokens`` this rank's block of
     the global batch.  It updates the shards in place, as
-    :func:`train_step` does, and returns the global loss.  ``n_micro``
-    (GPipe microbatches) belongs to the pipelined step of a later slice."""
-    plan.check_supported()
-    if n_micro is not None:
-        raise NotImplementedError("n_micro schedules the GPipe pipeline, which "
-                                  "comes with the GPipe slice (pipeline.py)")
+    :func:`train_step` does, and returns the global loss.  When the plan
+    has pp > 1 the forward runs the GPipe pipeline (:mod:`.pipeline`) with
+    ``n_micro`` microbatches (default pp); ``accum_steps`` accumulates on
+    top, each accumulation microbatch pipelined."""
     opt = make_optimizer(lr)
+    loss = functools.partial(loss_fn, n_micro=n_micro)
 
     def step(state: TrainState, tokens: torch.Tensor) -> tuple[TrainState, torch.Tensor]:
-        loss, grads = sharded_loss_and_grads(plan, state.params, tokens, config,
-                                             accum_steps)
+        loss_value, grads = sharded_loss_and_grads(plan, state.params, tokens, config,
+                                                   accum_steps, loss=loss)
         opt.update_(grads, state.opt_state, state.params)
         return TrainState(params=state.params, opt_state=state.opt_state,
-                          step=state.step + 1), loss
+                          step=state.step + 1), loss_value
 
     return step
