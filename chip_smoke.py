@@ -77,6 +77,19 @@ against the single-process one with its launches; the CLI runs ``train
 --experts 8`` with a resume, and refuses ``--pp 2`` on one device and
 ``--ep 2`` without experts with the reference's errors.
 
+The compiled-program slice: every engine above (``serve*``, ``spec_serve``'s
+admissions, ``lora_serve``, ``moe_decode_serve``) and the CLI's ``serve``
+and ``decode`` run the compiled programs, CUDA graphs replayed from their
+captures (``tputopo_torch/_graphs.py``).  After ``serve_int4``,
+``compiled``: ``forward_jit`` at [1, 2048] (32 ``flash_fwd`` launches a
+replay, logits against the eager forward), ``generate_jit`` (tokens equal
+to ``generate``'s), and the bf16, int8 + int8 KV and int4 engines against
+engines driven eagerly through the same bodies (tokens equal), with the
+host ops of a tick, the idle share of a profiled window, tokens/s, TTFT,
+seconds capturing, graph pool bytes and peak memory of both; after
+``moe_decode_serve``, ``compiled_moe``, the same equality for the MoE
+engine.
+
 Then the seconds of each phase, one ``kernels`` line, the card's
 ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
@@ -306,6 +319,17 @@ MOE_KEPT_TOL = TOL[torch.bfloat16]
 MOE_TIGHT_CF = 1.0
 # The conv classifier on the card in bf16: the reference CLI's run.
 VISION_STEPS, VISION_BATCH = 20, 64
+# The compiled programs (CUDA graphs, tputopo_torch/_graphs.py): each engine
+# that replays them against one driven eagerly through the same bodies (an
+# engine whose _program calls the eager functions), on the same requests.
+# A replay launches the eager body's kernels in its order on the same
+# buffers, so the tokens must be EQUAL.  The int8 engines take the first
+# COMPILED_INT8_REQUESTS requests of the serve stream, for time (the eager
+# int8 engine took 30 s over all 24 after PR 8); the ops of a tick are
+# counted on an engine serving COMPILED_OPS_REQUESTS short requests after
+# COMPILED_OPS_WARM steps.
+COMPILED_INT8_REQUESTS = 8
+COMPILED_OPS_REQUESTS, COMPILED_OPS_WARM = 2, 2
 # The keys the reference CLI prints (tputopo/workloads/__main__.py).
 CLI_KEYS = {
     "decode": {"batch", "prompt_len", "max_new", "mesh", "decode_tokens_per_s", "wall_s"},
@@ -653,6 +677,7 @@ def run_engine(tt, params, cfg, prefix, reqs, make=None) -> dict:
             return tt.ServingEngine(params, cfg, on_tokens=cb, **SERVE_ENGINE)
     eng = make(on_tokens)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     pid = eng.register_prefix(prefix) if prefix is not None else None
     ids, submitted = [], {}
@@ -667,11 +692,16 @@ def run_engine(tt, params, cfg, prefix, reqs, make=None) -> dict:
     plens = [len(p) + (len(prefix) if behind else 0) for p, _, behind in reqs]
     ttft = sorted(first[r] - submitted[r] for r in ids)
     generated = sum(len(row) - n for row, n in zip(rows, plens))
+    progs = eng.programs
     return {"rows": rows, "plens": plens, "wall_s": wall,
             "generated": generated, "tokens_per_s": generated / wall,
             "ttft_p50_s": statistics.median(ttft),
             "ttft_p95_s": ttft[math.ceil(0.95 * len(ttft)) - 1],
-            "metrics": dict(eng.metrics)}
+            "metrics": dict(eng.metrics),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "programs": {"captures": dict(progs.captures), "replays": dict(progs.replays),
+                         "capture_s": progs.capture_seconds,
+                         "pool_bytes": pool_bytes(progs.pool)}}
 
 
 def picks_vs_forward(tt, params, cfg, rows, plens) -> dict:
@@ -726,7 +756,8 @@ def phase_serve(tt, kernels, params, cfg) -> tuple:
     """The engine at full width, 32 layers, bf16 over the f32 masters: the
     stream twice, identical tokens, every pick within GEN_GAP of the
     forward, no flash launch (serving attends through einsums, as the
-    reference's does).  Returns (stream, flash launches of the two runs)."""
+    reference's does).  The engine replays its compiled programs.  Returns
+    (stream, flash launches of the two runs, the two runs)."""
     t_phase = time.perf_counter()
     prefix, reqs = serve_stream(cfg.vocab_size, 5, SERVE_REQUESTS, SERVE_PROMPT,
                                 SERVE_NEW, every=3)
@@ -753,13 +784,14 @@ def phase_serve(tt, kernels, params, cfg) -> tuple:
            "ttft_p50_s": [a["ttft_p50_s"], b["ttft_p50_s"]],
            "ttft_p95_s": [a["ttft_p95_s"], b["ttft_p95_s"]],
            "metrics": b["metrics"], "identical_runs": True, "launches": launches,
-           "peak_mem_gb": peak, **vs, "bound_max_gap": GEN_GAP,
+           "peak_mem_gb": peak, "programs": [a["programs"], b["programs"]],
+           **vs, "bound_max_gap": GEN_GAP,
            "ops_per_decode_step": ops_per_decode_step(params, cfg),
            "card_state_before": state, "seconds": time.perf_counter() - t_phase}
     emit(rec)
     check(vs["vs_forward_max_gap"] <= GEN_GAP,
           f"serve: a pick is not the forward's greedy pick: {rec['vs_forward_max_gap']}")
-    return (prefix, reqs), launches
+    return (prefix, reqs), launches, runs
 
 
 def phase_serve_int8(tt, params, cfg, stream) -> None:
@@ -825,10 +857,12 @@ def phase_serve_int4(tt, params, cfg) -> None:
           f"serve_int4: a pick is off the int4 forward's: {rec['vs_forward_max_gap']}")
 
 
-def profile_serve(tt, params, cfg, prefix, reqs) -> None:
+def profile_serve(tt, params, cfg, prefix, reqs, engine=None, path="serve") -> dict:
     """Device profile of the bf16 engine serving the stream: the window of
-    SERVE_PROFILED_TICKS ticks after SERVE_WARM_TICKS."""
-    eng = tt.ServingEngine(params, cfg, **SERVE_ENGINE)
+    SERVE_PROFILED_TICKS ticks after SERVE_WARM_TICKS (by then every
+    program of the window is captured).  ``engine`` is the engine class,
+    by default the plain one, which replays its programs."""
+    eng = (engine or tt.ServingEngine)(params, cfg, **SERVE_ENGINE)
     pid = eng.register_prefix(prefix)
     for p, m, behind in reqs:
         eng.submit(p, max_new=m, prefix=pid if behind else None)
@@ -836,11 +870,203 @@ def profile_serve(tt, params, cfg, prefix, reqs) -> None:
         eng.step()
     before = dict(eng.metrics)
     state = card_state()
-    rec = device_profile("serve", lambda: [eng.step() for _ in range(SERVE_PROFILED_TICKS)])
-    emit({**rec, "ticks": [SERVE_WARM_TICKS, SERVE_WARM_TICKS + SERVE_PROFILED_TICKS],
-          "decode_steps": eng.metrics["decode_steps"] - before["decode_steps"],
-          "prefill_chunks": eng.metrics["prefill_chunks"] - before["prefill_chunks"],
-          "card_state_before": state})
+    rec = device_profile(path, lambda: [eng.step() for _ in range(SERVE_PROFILED_TICKS)])
+    rec.update({"ticks": [SERVE_WARM_TICKS, SERVE_WARM_TICKS + SERVE_PROFILED_TICKS],
+                "decode_steps": eng.metrics["decode_steps"] - before["decode_steps"],
+                "prefill_chunks": eng.metrics["prefill_chunks"] - before["prefill_chunks"],
+                "card_state_before": state})
+    emit(rec)
+    return rec
+
+
+def pool_bytes(pool) -> int | None:
+    """Bytes of the segments the caching allocator holds for a graph
+    memory pool (``segment_pool_id`` of ``torch.cuda.memory_snapshot``);
+    None where the snapshot does not name pools."""
+    if pool is None:
+        return 0
+    segments = torch.cuda.memory_snapshot()
+    if segments and "segment_pool_id" not in segments[0]:
+        return None
+    return sum(seg["total_size"] for seg in segments
+               if tuple(seg["segment_pool_id"]) == tuple(pool))
+
+
+def eager_engine(base):
+    """``base`` driven eagerly: every device program is its eager body
+    (``serving.admit`` for ``admit_jit`` ...), with no capture."""
+    from tputopo_torch import serving
+
+    class Eager(base):
+        def _program(self, name, *args, **kw):
+            return getattr(serving, name)(*args, **kw)
+
+    return Eager
+
+
+def ops_per_tick(engine, params, cfg) -> dict:
+    """Host ATen operations of one decode tick and of one whole engine step
+    (harvest, admission, the tick, its readbacks), on an engine of
+    ``engine``'s class serving two short requests after its programs were
+    captured (COMPILED_OPS_WARM steps)."""
+    eng = engine(params, cfg, **SERVE_ENGINE)
+    for i in range(COMPILED_OPS_REQUESTS):
+        eng.submit(list(range(1, 17 + i)), max_new=16)
+    for _ in range(COMPILED_OPS_WARM):
+        eng.step()
+    with _OpCount() as tick:
+        eng._decode_tick()
+    with _OpCount() as step:
+        eng.step()
+    return {"decode_tick": tick.n, "engine_step": step.n}
+
+
+def phase_compiled(tt, kernels, params, cfg, tokens, prompt, stream, serve_runs,
+                   serve_profile) -> dict:
+    """The compiled programs at full width, 32 layers: ``forward_jit`` on
+    [1, 2048] (32 flash_fwd launches a replay, logits against the eager
+    forward), ``generate_jit`` (tokens equal to generate's), and the
+    engines that replay their programs against engines driven eagerly:
+    bf16 on the whole stream (the replaying runs and profile are phases
+    serve's and profile_serve's), int8 weights + int8 KV on part of it,
+    int4 at 4 layers; tokens equal.  With the measurements: host ops a
+    tick, the idle share of a profiled window, tokens/s and TTFT, seconds
+    capturing, graph pool bytes and peak memory, each beside the eager
+    run's.  Returns the flash launches
+    of one forward_jit replay."""
+    from tputopo_torch._graphs import Programs
+    from tputopo_torch.decode import generate_jit
+    from tputopo_torch.model import forward_jit
+
+    t_phase = time.perf_counter()
+    prefix, reqs = stream
+    rec = {"phase": "compiled", "model": "llama3_8b", "layers": cfg.n_layers}
+
+    # forward_jit: the capture, one counted replay, then both timed.
+    progs = Programs()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    forward_jit(params, tokens, cfg, programs=progs)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    reset(kernels)
+    logits = forward_jit(params, tokens, cfg, programs=progs)
+    torch.cuda.synchronize()
+    fwd_launches = launch_counts(kernels)
+    eager = tt.forward(params, tokens, cfg)
+    fwd = {"tokens": list(tokens.shape), "first_call_s": first_s,
+           "capture_s": progs.capture_seconds, "launches_per_replay": fwd_launches,
+           "bitwise_equal": bool(torch.equal(logits, eager)),
+           "max_abs_vs_forward": (logits - eager).abs().max().item(),
+           "bound_max_abs": FWD_MAX_ABS, "pool_bytes": pool_bytes(progs.pool)}
+    del logits, eager
+    fwd["replay_ms"] = cuda_ms(lambda: forward_jit(params, tokens, cfg, programs=progs),
+                               launches=3, reps=3, warmup=1)
+    fwd["eager_ms"] = cuda_ms(lambda: tt.forward(params, tokens, cfg),
+                              launches=3, reps=3, warmup=1)
+    progs.release()
+    rec["forward_jit"] = fwd
+
+    # generate_jit against generate.
+    progs = Programs()
+    first = generate_jit(params, prompt, cfg, max_new=GEN_NEW, programs=progs)
+    torch.cuda.synchronize()
+    times = {}
+    for name, fn in (("generate_jit", lambda: generate_jit(params, prompt, cfg,
+                                                           max_new=GEN_NEW, programs=progs)),
+                     ("generate", lambda: tt.generate(params, prompt, cfg, max_new=GEN_NEW))):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = (out, time.perf_counter() - t0)
+    new = GEN_BATCH * GEN_NEW
+    rec["generate_jit"] = {
+        "batch": GEN_BATCH, "prompt": GEN_PROMPT, "max_new": GEN_NEW,
+        "equal_to_generate": bool(torch.equal(times["generate_jit"][0], times["generate"][0])
+                                  and torch.equal(first, times["generate"][0])),
+        "new_tokens_per_s": new / times["generate_jit"][1],
+        "generate_new_tokens_per_s": new / times["generate"][1],
+        "capture_s": progs.capture_seconds, "pool_bytes": pool_bytes(progs.pool)}
+    progs.release()
+
+    # The engines: replayed against eager-driven, on the same requests.
+    eager_cls = eager_engine(tt.ServingEngine)
+    state = card_state()
+    eager_run = run_engine(tt, params, cfg, prefix, reqs, make=lambda cb: eager_cls(
+        params, cfg, on_tokens=cb, **SERVE_ENGINE))
+
+    def summary(run):
+        return {k: run[k] for k in ("wall_s", "tokens_per_s", "ttft_p50_s", "ttft_p95_s",
+                                    "peak_mem_gb", "programs")}
+
+    rec["serve_bf16"] = {"requests": len(reqs), "generated": eager_run["generated"],
+                         "equal_tokens": all(r["rows"] == eager_run["rows"]
+                                             for r in serve_runs),
+                         "replayed": [summary(r) for r in serve_runs],
+                         "eager": summary(eager_run), "card_state_before": state}
+    rec["ops"] = {"replayed": ops_per_tick(tt.ServingEngine, params, cfg),
+                  "eager": ops_per_tick(eager_cls, params, cfg)}
+    idle = {"replayed": serve_profile,
+            "eager": profile_serve(tt, params, cfg, prefix, reqs, eager_cls, "serve_eager")}
+    rec["profile_window"] = {k: {f: v[f] for f in ("wall_ms", "device_busy_ms", "idle_share",
+                                                   "decode_steps", "prefill_chunks")}
+                             for k, v in idle.items()}
+
+    qp = tt.quantize_params(params, bits=8)
+    qcfg = dataclasses.replace(cfg, kv_dtype="int8")
+    q_reqs = reqs[:COMPILED_INT8_REQUESTS]
+    runs = [run_engine(tt, qp, qcfg, prefix, q_reqs, make=lambda cb, cls=cls: cls(
+        qp, qcfg, on_tokens=cb, **SERVE_ENGINE)) for cls in (tt.ServingEngine, eager_cls)]
+    del qp
+    rec["serve_int8"] = {"requests": len(q_reqs), "generated": runs[1]["generated"],
+                         "equal_tokens": runs[0]["rows"] == runs[1]["rows"],
+                         "replayed": summary(runs[0]), "eager": summary(runs[1])}
+
+    cfg4 = dataclasses.replace(cfg, n_layers=SERVE_INT4_LAYERS)
+    cut = dict(params, layers={k: v[:SERVE_INT4_LAYERS] for k, v in params["layers"].items()})
+    qp4 = tt.quantize_params(cut, bits=4, group_size=SERVE_INT4_GROUP)
+    p4, r4 = serve_stream(cfg.vocab_size, 6, SERVE_INT4_REQUESTS, SERVE_INT4_PROMPT,
+                          SERVE_INT4_NEW, every=2)
+    runs = [run_engine(tt, qp4, cfg4, p4, r4, make=lambda cb, cls=cls: cls(
+        qp4, cfg4, on_tokens=cb, **SERVE_ENGINE)) for cls in (tt.ServingEngine, eager_cls)]
+    del qp4
+    rec["serve_int4"] = {"layers": SERVE_INT4_LAYERS, "requests": len(r4),
+                         "equal_tokens": runs[0]["rows"] == runs[1]["rows"],
+                         "replayed": summary(runs[0]), "eager": summary(runs[1])}
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    check(fwd_launches["flash_fwd"] == cfg.n_layers,
+          f"forward_jit launched flash_fwd {fwd_launches['flash_fwd']} times a replay, "
+          f"want {cfg.n_layers}")
+    check(fwd["max_abs_vs_forward"] <= FWD_MAX_ABS,
+          f"forward_jit disagrees with forward: {fwd}")
+    check(rec["generate_jit"]["equal_to_generate"], "generate_jit differs from generate")
+    for name in ("serve_bf16", "serve_int8", "serve_int4"):
+        check(rec[name]["equal_tokens"],
+              f"compiled {name}: the replayed engine's tokens differ from the eager one's")
+    check(rec["ops"]["replayed"]["decode_tick"] < rec["ops"]["eager"]["decode_tick"],
+          f"a replayed decode tick dispatched as many ops as an eager one: {rec['ops']}")
+    return fwd_launches
+
+
+def phase_compiled_moe(tt, params, cfg) -> None:
+    """The MoE engine (Mixtral width) replaying its programs against one
+    driven eagerly, on moe_decode_serve's stream: tokens equal."""
+    t_phase = time.perf_counter()
+    prefix, reqs = serve_stream(cfg.vocab_size, 7, MOE_SERVE_REQUESTS, SERVE_PROMPT,
+                                SERVE_NEW, 3)
+    eager_cls = eager_engine(tt.ServingEngine)
+    runs = [run_engine(tt, params, cfg, prefix, reqs, make=lambda cb, cls=cls: cls(
+        params, cfg, on_tokens=cb, **SERVE_ENGINE)) for cls in (tt.ServingEngine, eager_cls)]
+    rec = {"phase": "compiled_moe", "model": "mixtral_8x7b", "layers": cfg.n_layers,
+           "requests": len(reqs), "equal_tokens": runs[0]["rows"] == runs[1]["rows"]}
+    for name, run in zip(("replayed", "eager"), runs):
+        rec[name] = {k: run[k] for k in ("wall_s", "tokens_per_s", "ttft_p50_s",
+                                         "peak_mem_gb", "programs")}
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    check(rec["equal_tokens"], "compiled_moe: the replayed engine's tokens differ "
+                               "from the eager one's")
 
 
 def phase_spec_generate(tt, kernels, params, cfg) -> dict:
@@ -2160,12 +2386,15 @@ def main() -> int:
         "forward", lambda: tt.forward(params, tokens, cfg))))
     timed("profile_generate", lambda: emit(device_profile(
         "generate", lambda: tt.generate(params, prompt, cfg, max_new=GEN_NEW))))
-    stream, serve_launches = timed("serve", phase_serve, tt, _kernels.KERNELS,
-                                   params, cfg)
+    stream, serve_launches, serve_runs = timed("serve", phase_serve, tt,
+                                               _kernels.KERNELS, params, cfg)
     prefix, reqs = stream
-    timed("profile_serve", profile_serve, tt, params, cfg, prefix, reqs)
+    serve_profile = timed("profile_serve", profile_serve, tt, params, cfg, prefix, reqs)
     timed("serve_int8", phase_serve_int8, tt, params, cfg, stream)
     timed("serve_int4", phase_serve_int4, tt, params, cfg)
+    fwd_jit_launches = timed("compiled", phase_compiled, tt, _kernels.KERNELS, params,
+                             cfg, tokens, prompt, stream, serve_runs, serve_profile)
+    del serve_runs
     spec_launches = timed("spec_generate", phase_spec_generate, tt, _kernels.KERNELS,
                           params, cfg)
     spec_serve_launches = timed("spec_serve", phase_spec_serve, tt, _kernels.KERNELS,
@@ -2185,6 +2414,7 @@ def main() -> int:
                                                   _kernels.KERNELS)
     moe_serve_launches = timed("moe_decode_serve", phase_moe_decode_serve, tt,
                                _kernels.KERNELS, moe_params, moe_cfg)
+    timed("compiled_moe", phase_compiled_moe, tt, moe_params, moe_cfg)
     del moe_params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2240,9 +2470,12 @@ def main() -> int:
         "vision", "cli_single_gpu"))
     seconds["parallelism_slice_single_process"] = sum(seconds[k] for k in (
         "moe_forward", "moe_decode_serve", "moe_train"))
+    seconds["compiled_slice"] = seconds["compiled"] + seconds["compiled_moe"]
     for e in entries:
         e["launches"] = step_launches[e["name"]]  # per train step, the main path
         e["launches_by_path"] = {"forward": fwd_launches[e["name"]],
+                                 # one replay of the captured forward
+                                 "forward_jit": fwd_jit_launches[e["name"]],
                                  "train_step": step_launches[e["name"]],
                                  "serve": serve_launches[e["name"]],
                                  "sharded_train_step": sharded_launches[e["name"]],

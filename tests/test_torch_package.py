@@ -74,6 +74,30 @@ def test_port_modules_expose_the_reference_public_names(module):
     assert names and not sorted(n for n in names if not hasattr(port, n))
 
 
+@pytest.mark.parametrize("module,want", [
+    ("serving", 7), ("decode", 1), ("model", 1)])
+def test_port_modules_expose_the_reference_jit_programs(module, want):
+    """The serving path's compiled programs keep the reference's names: every
+    top-level ``*_jit`` of the reference module (an assignment or a
+    decorated function, read from its source) is a function of the port's
+    module, whose docstring says it is a CUDA-graph capture."""
+    import ast
+    import importlib
+
+    src = (REPO / "tputopo" / "workloads" / f"{module}.py").read_text()
+    body = ast.parse(src).body
+    names = {t.id for n in body if isinstance(n, ast.Assign) for t in n.targets
+             if isinstance(t, ast.Name) and t.id.endswith("_jit")}
+    names |= {n.name for n in body if isinstance(n, ast.FunctionDef)
+              and n.name.endswith("_jit")}
+    assert len(names) == want
+    port = importlib.import_module(f"tputopo_torch.{module}")
+    for name in sorted(names):
+        fn = getattr(port, name, None)
+        assert callable(fn), name
+        assert "CUDA-graph capture" in " ".join(fn.__doc__.split()), name
+
+
 def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tt.ModelConfig(n_layers=1, compute_dtype=torch.float32)

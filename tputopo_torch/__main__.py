@@ -260,7 +260,7 @@ def cmd_decode(args) -> int:
     import numpy as np
     import torch
 
-    from tputopo_torch.decode import generate
+    from tputopo_torch.decode import generate_jit
     from tputopo_torch.model import init_params
 
     cfg = _lm_config(args)
@@ -269,10 +269,12 @@ def cmd_decode(args) -> int:
                              args.int4)
     prompt = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (batch, args.prompt_len))).to(args.device)
-    generate(params, prompt, cfg, max_new=args.max_new)  # warm-up
+    # The reference times generate_jit after a compile call: the first
+    # call captures the program, the timed one replays it.
+    generate_jit(params, prompt, cfg, max_new=args.max_new)
     _sync(args.device)
     t0 = time.perf_counter()
-    generate(params, prompt, cfg, max_new=args.max_new)
+    generate_jit(params, prompt, cfg, max_new=args.max_new)
     _sync(args.device)
     dt = time.perf_counter() - t0
     print(json.dumps({

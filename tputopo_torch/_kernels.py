@@ -47,7 +47,10 @@ class Kernel:
     as a float and the stream (:attr:`argtypes`).
     ``launches`` is a plain integer that the kernel's wrapper raises by
     one where it launches the kernel, and nowhere else, so a run can show
-    that its main path went through the kernel."""
+    that its main path went through the kernel.  A launch that a CUDA
+    graph capture records runs only when the graph replays: the wrapper
+    counts it in ``captured`` instead, and each replay adds the launches
+    its capture recorded to ``launches`` (:mod:`._graphs`)."""
 
     def __init__(self, name: str, source: str, n_ptrs: int):
         self.name = name
@@ -55,6 +58,7 @@ class Kernel:
         self.n_ptrs = n_ptrs
         self.symbol = f"tputopo_{name}"
         self.launches = 0
+        self.captured = 0
         self.build_log = ""
         self.build_seconds = 0.0
         self._lib: ctypes.CDLL | None = None

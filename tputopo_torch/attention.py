@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import torch
 
-from tputopo_torch import _kernels
+from tputopo_torch import _graphs, _kernels
 
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -168,7 +168,9 @@ def _launch_args(kernel: _kernels.Kernel, tensors: dict, rows: dict, causal: boo
 
 def _launch(kernel: _kernels.Kernel, tensors: dict, rows: dict, causal: bool,
             outputs: dict):
-    """Launch ``kernel`` on the current stream and count the launch."""
+    """Launch ``kernel`` on the current stream and count the launch: in
+    ``launches``, or in ``captured`` while a CUDA graph capture records it
+    (its replays count it, :mod:`._graphs`)."""
     args = _launch_args(kernel, tensors, rows, causal, outputs)
     q = tensors["q"]
     with torch.cuda.device(q.device):
@@ -177,7 +179,10 @@ def _launch(kernel: _kernels.Kernel, tensors: dict, rows: dict, causal: bool,
         B, S, N, H = q.shape
         raise RuntimeError(f"{kernel.name} kernel launch failed: cudaError {err} "
                            f"(B={B}, S={S}, N={N}, H={H}, {q.dtype})")
-    kernel.launches += 1
+    if _graphs.capturing(q.device):
+        kernel.captured += 1
+    else:
+        kernel.launches += 1
 
 
 def _flash_forward_lse_cuda(q, k, v, *, causal):

@@ -17,6 +17,8 @@ the reference does.
 
 Decoding policies: greedy (temperature 0, the default) and temperature
 sampling with optional top-k, drawn from a caller's ``torch.Generator``.
+:func:`generate_jit`, the reference's compiled ``generate``, is one
+CUDA-graph capture of the whole loop (:mod:`._graphs`).
 The FFN of an MoE config is the drop-free mixture
 (:func:`~.moe.moe_mlp_reference`), the reference's serving semantics: the
 capacity-dispatch training path would drop tokens during a prefill.
@@ -29,9 +31,10 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from tputopo_torch import _graphs
 from tputopo_torch.model import (ModelConfig, _apply_rope, _check_supported,
-                                 _layer, _rmsnorm, _rope_tables, embed_tokens,
-                                 lm_head, resolve_device)
+                                 _layer, _rmsnorm, _rope_tables, check_token_ids,
+                                 embed_tokens, lm_head, resolve_device)
 from tputopo_torch.quant import deq_rows, fold_kv_scale, qdot, quantize_kv
 
 
@@ -169,7 +172,28 @@ def _select(logits: torch.Tensor, temperature: float, top_k: int | None,
         kth = torch.topk(lg, top_k, dim=-1).values[:, -1:]
         lg = lg.masked_fill(lg < kth, float("-inf"))
     probs = torch.softmax(lg, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    # torch.multinomial's one-sample draw written out (the argmax of p / E,
+    # E ~ Exp(1)): its argument check reads the probabilities back, which
+    # a CUDA graph cannot record.  E is kept above 0, so a token of
+    # probability 0 is never drawn.
+    e = torch.empty_like(probs).exponential_(generator=generator)
+    return (probs / e.clamp_min_(torch.finfo(e.dtype).tiny)).argmax(dim=-1)
+
+
+def _generate_limits(config: ModelConfig, P: int, max_new: int,
+                     max_len: int | None, temperature: float,
+                     generator: torch.Generator | None) -> int:
+    """Validate a generate call; returns the cache length."""
+    _check_supported(config)
+    if max_new < 1:
+        raise ValueError(f"max_new must be >= 1, got {max_new}")
+    if temperature > 0.0 and generator is None:
+        raise ValueError("sampling (temperature > 0) needs a torch.Generator")
+    total = P + max_new
+    max_len = max_len or total
+    if max_len < total:
+        raise ValueError(f"max_len {max_len} < prompt {P} + new {max_new}")
+    return max_len
 
 
 @torch.no_grad()
@@ -183,19 +207,48 @@ def generate(params: dict, prompt: torch.Tensor, config: ModelConfig, *,
     ``temperature`` 0 (default) is greedy; above 0 it samples, optionally
     from the ``top_k`` most likely tokens, drawing from ``generator``
     (required then, on the params' device)."""
-    c = config
-    _check_supported(c)
+    prompt = torch.as_tensor(prompt, device=params["final_norm"].device)
+    max_len = _generate_limits(config, prompt.shape[1], max_new, max_len,
+                               temperature, generator)
+    return _generate(params, prompt, config, max_new, max_len, temperature,
+                     top_k, generator)
+
+
+@torch.no_grad()
+def generate_jit(params: dict, prompt: torch.Tensor, config: ModelConfig, *,
+                 max_new: int, max_len: int | None = None,
+                 temperature: float = 0.0, top_k: int | None = None,
+                 generator: torch.Generator | None = None,
+                 programs=None) -> torch.Tensor:
+    """:func:`generate` as ONE compiled program per static (B, P, max_new,
+    max_len, temperature, top_k) and params tree, the reference's
+    ``generate_jit``: a CUDA-graph capture of the prefill and every decode
+    step (:mod:`._graphs`), not ``torch.jit``, with the decode positions
+    fixed at capture.  The prompt is checked on its way into the graph's
+    static buffer; the tokens returned are a fresh copy.  On the CPU it
+    runs :func:`generate`'s body."""
     device = params["final_norm"].device
-    prompt = torch.as_tensor(prompt, device=device)
+    prompt = torch.as_tensor(prompt)
+    max_len = _generate_limits(config, prompt.shape[1], max_new, max_len,
+                               temperature, generator)
+    check_token_ids(prompt, config)
+    out = _graphs.run(programs, "generate",
+                      lambda p: _generate(params, p.to(device), config, max_new,
+                                          max_len, temperature, top_k, generator),
+                      device=device,
+                      static=(config, max_new, max_len, temperature, top_k),
+                      inputs=(prompt,), bound=params, generator=generator)
+    return out.clone() if _graphs.graphed(device) else out
+
+
+def _generate(params: dict, prompt: torch.Tensor, config: ModelConfig,
+              max_new: int, max_len: int, temperature: float, top_k: int | None,
+              generator: torch.Generator | None) -> torch.Tensor:
+    """The body of :func:`generate` and :func:`generate_jit`: the prompt's
+    prefill, then ``max_new - 1`` single-token steps at positions P + i."""
+    c = config
+    device = prompt.device
     B, P = prompt.shape
-    if max_new < 1:
-        raise ValueError(f"max_new must be >= 1, got {max_new}")
-    if temperature > 0.0 and generator is None:
-        raise ValueError("sampling (temperature > 0) needs a torch.Generator")
-    total = P + max_new
-    max_len = max_len or total
-    if max_len < total:
-        raise ValueError(f"max_len {max_len} < prompt {P} + new {max_new}")
     cos, sin = _rope_tables(c, max_len, device)
     cache = KVCache.create(c, B, max_len, device=device)
 

@@ -47,6 +47,9 @@ all of it.  Under ``pp > 1`` the layer stack runs as the GPipe pipeline
 identity here (:func:`.sharding.constrain`): the collectives above carry
 the layout.
 
+:func:`forward_jit`, the reference's compiled forward, replays one
+CUDA-graph capture of :func:`forward` (:mod:`._graphs`).
+
 Entry points run on ``cuda`` unless the caller asks for the CPU
 (``device="cpu"``); with no GPU and no such request they raise.
 """
@@ -63,6 +66,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from tputopo_torch import _graphs
 from tputopo_torch.attention import flash_attention, head_dim_ok
 from tputopo_torch.quant import deq_rows, is_quantized, qdot
 
@@ -190,13 +194,29 @@ def _rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def _rope_tables(config: ModelConfig, seq: int, device) -> tuple:
-    half = config.head_dim // 2
-    exponent = -torch.arange(0, half, dtype=torch.float32, device=device) / half
-    freqs = torch.pow(torch.tensor(config.rope_theta, dtype=torch.float32,
-                                   device=device), exponent)
-    angles = (torch.arange(seq, dtype=torch.float32, device=device)[:, None]
-              * freqs[None, :])
-    return torch.cos(angles), torch.sin(angles)  # each [S, Hd/2]
+    """(cos, sin), each [S, Hd/2] f32, built once per (head dim, theta,
+    length, device) and shared by every caller, which only reads them.
+    Building them copies theta from the host, which a CUDA graph cannot
+    record: a compiled program's warm-up builds them before its capture."""
+    key = (config.head_dim, config.rope_theta, seq, torch.device(device))
+    if key not in _ROPE:
+        if _graphs.capturing(device):
+            raise RuntimeError(f"RoPE tables {key} first asked for inside a CUDA "
+                               "graph capture: build them before it")
+        half = config.head_dim // 2
+        exponent = -torch.arange(0, half, dtype=torch.float32, device=device) / half
+        freqs = torch.pow(torch.tensor(config.rope_theta, dtype=torch.float32,
+                                       device=device), exponent)
+        angles = (torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+                  * freqs[None, :])
+        if len(_ROPE) >= _ROPE_KEEP:
+            _ROPE.pop(next(iter(_ROPE)))  # the oldest
+        _ROPE[key] = (torch.cos(angles), torch.sin(angles))
+    return _ROPE[key]
+
+
+_ROPE: dict = {}
+_ROPE_KEEP = 32
 
 
 def _apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
@@ -434,13 +454,21 @@ def _block_loop(x: torch.Tensor, layers: dict, config: ModelConfig,
     return x, aux
 
 
-def embed_tokens(params: dict, tokens: torch.Tensor, config: ModelConfig) -> torch.Tensor:
-    # JAX clamps an out-of-range id silently and torch would fault on the
-    # card: reject it here.
+def check_token_ids(tokens: torch.Tensor, config: ModelConfig) -> None:
+    """JAX clamps an out-of-range id silently and torch would fault on the
+    card: reject it (a readback when ``tokens`` lie on the card)."""
     if tokens.numel() and (int(tokens.min()) < 0
                            or int(tokens.max()) >= config.vocab_size):
         raise ValueError(f"token ids must lie in [0, {config.vocab_size}); "
                          f"got [{int(tokens.min())}, {int(tokens.max())}]")
+
+
+def embed_tokens(params: dict, tokens: torch.Tensor, config: ModelConfig) -> torch.Tensor:
+    """The ids' rows of the embedding, after :func:`check_token_ids`.  A CUDA
+    graph cannot record the check's readback: under a capture the compiled
+    program has checked its input where it entered the static buffer."""
+    if not _graphs.capturing(tokens.device):
+        check_token_ids(tokens, config)
     return deq_rows(params["embed"], tokens, config.compute_dtype)
 
 
@@ -515,6 +543,23 @@ def forward_with_aux(params: dict, tokens: torch.Tensor, config: ModelConfig,
 def forward(params: dict, tokens: torch.Tensor, config: ModelConfig) -> torch.Tensor:
     """Token ids [B, S] -> logits [B, S, vocab] (float32)."""
     return forward_with_aux(params, tokens, config)[0]
+
+
+@torch.no_grad()
+def forward_jit(params: dict, tokens: torch.Tensor, config: ModelConfig, *,
+                programs=None) -> torch.Tensor:
+    """:func:`forward` as one compiled program per static [B, S], config and
+    params tree: a CUDA-graph capture (:mod:`._graphs`), not ``torch.jit``,
+    the counterpart of the reference's ``forward_jit``.  The ids are checked
+    on the way into the graph's static buffer; the logits returned are a
+    fresh copy.  Not differentiable.  On the CPU it runs :func:`forward`."""
+    device = params["final_norm"].device
+    tokens = torch.as_tensor(tokens)
+    check_token_ids(tokens, config)
+    out = _graphs.run(programs, "forward", lambda t: forward(params, t, config),
+                      device=device, static=(config,), inputs=(tokens,),
+                      bound=params)
+    return out.clone() if _graphs.graphed(device) else out
 
 
 # ---- tensor parallelism -----------------------------------------------------

@@ -30,6 +30,12 @@ prefix caching and token streaming.
   chunk holding the prompt's last token activates the slot, later chunks
   are skipped.
 
+Every device function has its compiled counterpart under the reference's
+name (``admit_jit``, ``decode_steps_jit``, ...): a CUDA-graph capture
+(:mod:`._graphs`) that the engine replays.  The admissions read the slot,
+start and request's ints from one device vector, as the reference's
+programs take traced scalars, so one graph per width serves every slot.
+
 The host-side :class:`ServingEngine` keeps the queue and the slot
 bookkeeping.  It reads the device state back where the reference does,
 once per tick (free slots, finished slots, any slot active, streaming);
@@ -49,10 +55,11 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from tputopo_torch import _graphs
 from tputopo_torch.decode import KVCache, _block_hidden, _select, serving_ffn
 from tputopo_torch.model import (ModelConfig, _check_supported, _layer,
-                                 _rmsnorm, _rope_tables, lm_head,
-                                 resolve_device)
+                                 _rmsnorm, _rope_tables, check_token_ids,
+                                 embed_tokens, lm_head, resolve_device)
 from tputopo_torch.quant import deq_rows, fold_kv_scale, qdot, quantize_kv
 
 
@@ -91,44 +98,130 @@ def init_state(config: ModelConfig, slots: int, max_len: int, *,
 
 
 # ---- admission: ragged prefill into one slot --------------------------------
+#
+# The admission programs read their scalars from one int64 device vector, as
+# the reference's programs take traced scalars: one body, and one captured
+# graph per (program, width), serves every slot, offset and request.
+_SLOT, _START, _PLEN, _SEQ, _BUDGET, _EOS = range(6)
+
+
+def _scalars(state: DecodeState, slot: int, start: int = 0, prompt_len: int = 0,
+             seq_id: int = 0, budget: int = 0, eos_id: int = 0) -> torch.Tensor:
+    """The admission scalars as a host int64 vector.  ``slot`` must lie in
+    range: the reference clamps it, a device gather would fault."""
+    if not 0 <= slot < state.tokens.shape[0]:
+        raise ValueError(f"slot {slot} outside [0, {state.tokens.shape[0]})")
+    return torch.tensor([slot, start, prompt_len, seq_id, budget, eos_id],
+                        dtype=torch.long)
+
+
+def _window_start(start: torch.Tensor, size: int, width: int) -> torch.Tensor:
+    """Where ``dynamic_slice`` / ``dynamic_update_slice`` put a ``width``
+    window at ``start`` in an axis of ``size``: a negative start counts
+    once from the end, then clamps into [0, size - width]."""
+    return torch.where(start < 0, start + size, start).clamp(0, size - width)
+
 
 def _slot_cache(cache: KVCache, slot: int) -> KVCache:
-    """One slot's cache slice as a batch-1 cache: views, so the block
+    """One slot's cache slice as a batch-1 cache: views, so a block
     prefill writes the slot in place.  Every buffer, the int8 scales
     included, shares the [L, slots, ...] layout."""
     return KVCache(*(None if b is None else b[:, slot:slot + 1] for b in cache))
 
 
-def _finish_admit(state: DecodeState, slot: int, last_logits: torch.Tensor,
-                  prompt_row: torch.Tensor, prompt_len: int, seq_id: int,
-                  budget: int, eos_id: int, temperature: float,
-                  top_k: int | None, generator: torch.Generator | None) -> None:
-    """Shared tail of whole-bucket and chunked admission: select the first
-    token from the last prompt position's logits [V], install the token
-    row (prompt, zeros past it, then the first token) and activate the
-    slot.  ``prompt_row`` may be bucket-length or max_len."""
+def _slot_prefill(params: dict, state: DecodeState, config: ModelConfig,
+                  slot: torch.Tensor, tokens: torch.Tensor,
+                  start: torch.Tensor) -> torch.Tensor:
+    """``tokens`` [T] at positions start..start+T-1 through the stack
+    against the rows of ``slot`` (a [1] device index) of the cache, which
+    are gathered and written back: the reference's ``_block_step`` on
+    ``_slot_cache``, merged back by ``_merge_slot_cache`` -> the last
+    layer's output [1, T, D].  ``start`` ([1]) places the window as
+    ``dynamic_slice`` does (:func:`_window_start`) for the RoPE rows and
+    the cache write; the causal mask compares with the raw start, as the
+    reference's does."""
+    S, T = state.tokens.shape[1], tokens.shape[0]
+    cache = KVCache(*(None if b is None else b.index_select(1, slot)
+                      for b in state.cache))
+    cos, sin = _rope_tables(config, S, tokens.device)
+    rows = _window_start(start, S, T)[:, None] + torch.arange(T, device=tokens.device)
+    x = embed_tokens(params, tokens[None, :], config)
+    x = _ragged_layers(params, config, x, cos[rows], sin[rows], start, cache)
+    for whole, b in zip(state.cache, cache):
+        if b is not None:
+            whole.index_copy_(1, slot, b)
+    return x
+
+
+def _finish_admit(state: DecodeState, slot: torch.Tensor, first: torch.Tensor,
+                  prompt_row: torch.Tensor, prompt_len: torch.Tensor,
+                  seq_id: torch.Tensor, budget: torch.Tensor,
+                  eos_id: torch.Tensor) -> None:
+    """Shared tail of whole-bucket and chunked admission, every argument a
+    [1] device tensor but ``prompt_row`` (bucket-length or max_len):
+    install the token row (prompt, zeros past it, then the first token)
+    and activate the slot."""
     max_len = state.tokens.shape[1]
-    first = _select(last_logits[None, :], temperature, top_k, generator)[0]
-    n = min(prompt_len, max_len, prompt_row.shape[0])
-    row = state.tokens[slot]
-    row.zero_()
-    row[:n] = prompt_row[:n]
-    if prompt_len < max_len:  # the reference's mode="drop" write
-        row[prompt_len] = first
+    w = min(prompt_row.shape[0], max_len)
+    pos = torch.arange(max_len, device=first.device)
+    row = torch.zeros(max_len, dtype=state.tokens.dtype, device=first.device)
+    row[:w] = prompt_row[:w]
+    row = torch.where(pos < prompt_len, row, 0)
+    row = torch.where(pos == prompt_len, first, row)  # the reference's mode="drop"
     length = prompt_len + 1
-    state.length[slot] = length
-    state.prompt_len[slot] = prompt_len
-    state.budget[slot] = budget
-    state.seq_id[slot] = seq_id
+    state.tokens.index_copy_(0, slot, row[None, :])
+    state.length.index_copy_(0, slot, length)
+    state.prompt_len.index_copy_(0, slot, prompt_len)
+    state.budget.index_copy_(0, slot, budget)
+    state.seq_id.index_copy_(0, slot, seq_id)
     # Done at once when the first token is EOS, the budget was one token,
     # or the buffer is full.
-    state.done[slot] = (first == eos_id) | (budget <= 1) | (length >= max_len)
+    state.done.index_copy_(0, slot, (first == eos_id) | (budget <= 1)
+                           | (length >= max_len))
 
 
-def _last_logits(params: dict, config: ModelConfig, x: torch.Tensor,
-                 i: int) -> torch.Tensor:
-    """The logits [V] of position ``i`` of a batch-1 hidden state."""
-    return lm_head(params, x[0, i:i + 1], config)[0]
+def _admission(params: dict, state: DecodeState, config: ModelConfig,
+               chunk: torch.Tensor, a: torch.Tensor, prompt: torch.Tensor | None,
+               temperature: float, top_k: int | None,
+               generator: torch.Generator | None) -> None:
+    """The one body of the admission programs, in place: ``chunk`` into the
+    slot's cache at the start ``a`` names; with ``prompt`` (the padded
+    row), also the first token, picked from the logits at prompt_len - 1
+    (an index into the chunk placed as ``dynamic_index_in_dim`` places
+    it), and the slot's activation."""
+    slot, start = a[_SLOT:_SLOT + 1], a[_START:_START + 1]
+    x = _slot_prefill(params, state, config, slot, chunk, start)
+    if prompt is None:
+        return
+    plen = a[_PLEN:_PLEN + 1]
+    last = _window_start(plen - 1 - start, chunk.shape[0], 1)
+    first = _select(lm_head(params, x[0].index_select(0, last), config),
+                    temperature, top_k, generator)
+    _finish_admit(state, slot, first, prompt, plen, a[_SEQ:_SEQ + 1],
+                  a[_BUDGET:_BUDGET + 1], a[_EOS:_EOS + 1])
+
+
+def _admit_program(programs, name: str, params: dict, state: DecodeState,
+                   config: ModelConfig, chunk, a: torch.Tensor, prompt=None, *,
+                   temperature: float = 0.0, top_k: int | None = None,
+                   generator: torch.Generator | None = None, jit: bool) -> None:
+    """Run :func:`_admission`: eagerly, or as the compiled program ``name``
+    (one graph per config, chunk and prompt width, temperature and top_k).
+    Host ids are range-checked here, where they enter the device."""
+    device = state.tokens.device
+    inputs = (torch.as_tensor(chunk), a) + (() if prompt is None
+                                            else (torch.as_tensor(prompt),))
+
+    def body(chunk, a, prompt=None):
+        _admission(params, state, config, chunk, a, prompt, temperature, top_k,
+                   generator)
+
+    if not jit:
+        return body(*(t.to(device) for t in inputs))
+    check_token_ids(inputs[0], config)
+    _graphs.run(programs, name, body, device=device,
+                static=(config, temperature, top_k), inputs=inputs,
+                bound=(params, state), mutated=state, generator=generator)
 
 
 @torch.no_grad()
@@ -138,12 +231,25 @@ def admit(params: dict, state: DecodeState, config: ModelConfig, slot: int,
           generator: torch.Generator | None = None) -> None:
     """Prefill ``prompt`` (padded to its bucket length) into ``slot`` and
     emit its first token, in place.  ``eos_id`` < 0 disables EOS."""
-    cos, sin = _rope_tables(config, state.tokens.shape[1], prompt.device)
-    x = _block_hidden(params, config, prompt[None, :], 0,
-                      _slot_cache(state.cache, slot), cos, sin)
-    _finish_admit(state, slot, _last_logits(params, config, x, prompt_len - 1),
-                  prompt, prompt_len, seq_id, budget, eos_id, temperature,
-                  top_k, generator)
+    _admit_program(None, "admit", params, state, config, prompt,
+                   _scalars(state, slot, 0, prompt_len, seq_id, budget, eos_id),
+                   prompt, temperature=temperature, top_k=top_k,
+                   generator=generator, jit=False)
+
+
+@torch.no_grad()
+def admit_jit(params: dict, state: DecodeState, config: ModelConfig, slot: int,
+              prompt: torch.Tensor, prompt_len: int, seq_id: int, budget: int,
+              eos_id: int, *, temperature: float = 0.0, top_k: int | None = None,
+              generator: torch.Generator | None = None, programs=None) -> None:
+    """:func:`admit` as one compiled program per bucket width: a CUDA-graph
+    capture (:mod:`._graphs`), not ``torch.jit``.  The slot and the ints
+    reach the graph as device scalars, so every slot and request replays
+    it.  On the CPU it runs :func:`admit`'s body."""
+    _admit_program(programs, "admit", params, state, config, prompt,
+                   _scalars(state, slot, 0, prompt_len, seq_id, budget, eos_id),
+                   prompt, temperature=temperature, top_k=top_k,
+                   generator=generator, jit=True)
 
 
 @torch.no_grad()
@@ -153,9 +259,19 @@ def prefill_chunk(params: dict, state: DecodeState, config: ModelConfig,
     start.. fills only the slot's cache, and the slot stays inactive, so
     other slots decode between chunks.  Causally exact: the chunk attends
     itself plus the chunks already in the cache."""
-    cos, sin = _rope_tables(config, state.tokens.shape[1], chunk.device)
-    _block_hidden(params, config, chunk[None, :], start,
-                  _slot_cache(state.cache, slot), cos, sin)
+    _admit_program(None, "prefill_chunk", params, state, config, chunk,
+                   _scalars(state, slot, start), jit=False)
+
+
+@torch.no_grad()
+def prefill_chunk_jit(params: dict, state: DecodeState, config: ModelConfig,
+                      slot: int, chunk: torch.Tensor, start: int, *,
+                      programs=None) -> None:
+    """:func:`prefill_chunk` as one compiled program per chunk width, a
+    CUDA-graph capture (:mod:`._graphs`), not ``torch.jit``; the slot and
+    start are device scalars."""
+    _admit_program(programs, "prefill_chunk", params, state, config, chunk,
+                   _scalars(state, slot, start), jit=True)
 
 
 @torch.no_grad()
@@ -168,13 +284,28 @@ def admit_final_chunk(params: dict, state: DecodeState, config: ModelConfig,
     """The FINAL chunk of a chunked prefill: position prompt_len-1 lies in
     ``chunk``, so this fills its cache span and activates the slot (first
     token, and the token row from the full padded ``prompt``)."""
-    cos, sin = _rope_tables(config, state.tokens.shape[1], chunk.device)
-    x = _block_hidden(params, config, chunk[None, :], start,
-                      _slot_cache(state.cache, slot), cos, sin)
-    _finish_admit(state, slot,
-                  _last_logits(params, config, x, prompt_len - 1 - start),
-                  prompt, prompt_len, seq_id, budget, eos_id, temperature,
-                  top_k, generator)
+    _admit_program(None, "admit_final_chunk", params, state, config, chunk,
+                   _scalars(state, slot, start, prompt_len, seq_id, budget, eos_id),
+                   prompt, temperature=temperature, top_k=top_k,
+                   generator=generator, jit=False)
+
+
+@torch.no_grad()
+def admit_final_chunk_jit(params: dict, state: DecodeState, config: ModelConfig,
+                          slot: int, prompt: torch.Tensor, chunk: torch.Tensor,
+                          start: int, prompt_len: int, seq_id: int, budget: int,
+                          eos_id: int, *, temperature: float = 0.0,
+                          top_k: int | None = None,
+                          generator: torch.Generator | None = None,
+                          programs=None) -> None:
+    """:func:`admit_final_chunk` as one compiled program per chunk width
+    and prompt row width, a CUDA-graph capture (:mod:`._graphs`), not
+    ``torch.jit``: the engine passes max_len rows, so a prefix of any
+    length replays it."""
+    _admit_program(programs, "admit_final_chunk", params, state, config, chunk,
+                   _scalars(state, slot, start, prompt_len, seq_id, budget, eos_id),
+                   prompt, temperature=temperature, top_k=top_k,
+                   generator=generator, jit=True)
 
 
 # ---- prefix caching: compute a shared prompt prefix's KV once ---------------
@@ -183,8 +314,9 @@ def admit_final_chunk(params: dict, state: DecodeState, config: ModelConfig,
 def build_prefix_cache(params: dict, config: ModelConfig,
                        tokens: torch.Tensor) -> KVCache:
     """KV for a shared prefix [P], computed once into a batch-1, length-P
-    cache on the tokens' device.  RoPE is absolute, so these rows equal
+    cache on the parameters' device.  RoPE is absolute, so these rows equal
     computing the prefix in place at positions 0..P-1 of any slot."""
+    tokens = torch.as_tensor(tokens, device=params["final_norm"].device)
     P = tokens.shape[0]
     cos, sin = _rope_tables(config, P, tokens.device)
     cache = KVCache.create(config, 1, P, device=tokens.device)
@@ -193,12 +325,46 @@ def build_prefix_cache(params: dict, config: ModelConfig,
 
 
 @torch.no_grad()
+def build_prefix_cache_jit(params: dict, config: ModelConfig,
+                           tokens: torch.Tensor, *, programs=None) -> KVCache:
+    """:func:`build_prefix_cache` as one compiled program per prefix
+    length, a CUDA-graph capture (:mod:`._graphs`), not ``torch.jit``; the
+    cache returned is a fresh copy."""
+    device = params["final_norm"].device
+    tokens = torch.as_tensor(tokens)
+    check_token_ids(tokens, config)
+    out = _graphs.run(programs, "build_prefix_cache",
+                      lambda t: build_prefix_cache(params, config, t),
+                      device=device, static=(config,), inputs=(tokens,),
+                      bound=params)
+    if not _graphs.graphed(device):
+        return out
+    return KVCache(*(None if b is None else b.clone() for b in out))
+
+
+def _copy_prefix(state: DecodeState, prefix: KVCache, slot: torch.Tensor) -> None:
+    for whole, b in zip(state.cache, prefix):
+        if b is not None:
+            whole.narrow(2, 0, b.shape[2]).index_copy_(1, slot, b)
+
+
+@torch.no_grad()
 def copy_prefix(state: DecodeState, prefix: KVCache, slot: int) -> None:
     """Install a prebuilt prefix KV into ``slot``'s positions 0..P-1 — a
     device copy.  The slot stays inactive; the suffix prefill activates it."""
-    for whole, b in zip(state.cache, prefix):
-        if b is not None:
-            whole[:, slot:slot + 1, :b.shape[2]] = b
+    _copy_prefix(state, prefix, _scalars(state, slot)[:1].to(state.tokens.device))
+
+
+@torch.no_grad()
+def copy_prefix_jit(state: DecodeState, prefix: KVCache, slot: int, *,
+                    programs=None) -> None:
+    """:func:`copy_prefix` as a compiled program, one per prefix buffer: a
+    CUDA-graph capture (:mod:`._graphs`), not ``torch.jit``; the slot is a
+    device scalar."""
+    _graphs.run(programs, "copy_prefix", lambda s: _copy_prefix(state, prefix, s),
+                device=state.tokens.device, static=(),
+                inputs=(_scalars(state, slot)[:1],), bound=(state, prefix),
+                mutated=state.cache)
 
 
 # ---- the ragged decode step -------------------------------------------------
@@ -224,9 +390,8 @@ def _write_kv_at(cache_l: torch.Tensor, kv: torch.Tensor,
     overwrites EARLIER rows: callers keep pos[b] + T <= S for windows that
     matter (see :func:`ragged_block`)."""
     B, T = kv.shape[:2]
-    S = cache_l.shape[1]
-    start = torch.where(pos < 0, pos + S, pos).clamp(0, S - T)
-    idx = start[:, None] + torch.arange(T, device=pos.device)
+    idx = _window_start(pos, cache_l.shape[1], T)[:, None] + torch.arange(
+        T, device=pos.device)
     cache_l[torch.arange(B, device=pos.device)[:, None], idx] = kv
 
 
@@ -284,17 +449,26 @@ def ragged_hidden(params: dict, config: ModelConfig, tokens: torch.Tensor,
     """:func:`ragged_block` without the head: the last layer's output
     [B, T, D] before the final norm, for callers that need the logits of
     one position per slot (the speculative draft's catch-up)."""
-    c = config
-    _check_supported(c)
-    B, T = tokens.shape
-    group = c.n_heads // c.n_kv_heads
+    _check_supported(config)
+    T = tokens.shape[1]
     max_len = cache.k.shape[2]
-    cos, sin = _rope_tables(c, max_len, tokens.device)
+    cos, sin = _rope_tables(config, max_len, tokens.device)
     pos_bt = (starts[:, None] + torch.arange(T, device=tokens.device)).clamp(
         0, max_len - 1)
-    cos_bt, sin_bt = cos[pos_bt], sin[pos_bt]  # [B, T, H/2]
+    x = deq_rows(params["embed"], tokens, config.compute_dtype)  # [B, T, D]
+    return _ragged_layers(params, config, x, cos[pos_bt], sin[pos_bt], starts, cache)
 
-    x = deq_rows(params["embed"], tokens, c.compute_dtype)  # [B, T, D]
+
+def _ragged_layers(params: dict, config: ModelConfig, x: torch.Tensor,
+                   cos_bt: torch.Tensor, sin_bt: torch.Tensor, starts: torch.Tensor,
+                   cache: KVCache) -> torch.Tensor:
+    """The layer stack over embedded rows x [B, T, D] whose RoPE rows
+    cos_bt/sin_bt [B, T, H/2] are given, each slot's K/V written at its
+    window ``starts[b]`` and its queries masked from its raw start -> the
+    last layer's output [B, T, D]."""
+    c = config
+    B, T = x.shape[:2]
+    group = c.n_heads // c.n_kv_heads
     for i in range(c.n_layers):
         layer = _layer(params["layers"], i)
         h = _rmsnorm(x, layer["attn_norm"], c.norm_eps)
@@ -351,6 +525,24 @@ def decode_step(params: dict, state: DecodeState, config: ModelConfig,
     state.done.logical_or_(finished)
 
 
+@torch.no_grad()
+def decode_step_jit(params: dict, state: DecodeState, config: ModelConfig,
+                    eos_id: int, *, temperature: float = 0.0,
+                    top_k: int | None = None,
+                    generator: torch.Generator | None = None,
+                    programs=None) -> None:
+    """:func:`decode_step` as one compiled program per (config,
+    temperature, top_k, eos_id) on this state: a CUDA-graph capture
+    (:mod:`._graphs`), not ``torch.jit``.  On the CPU it runs the step."""
+    _graphs.run(programs, "decode_step",
+                lambda: decode_step(params, state, config, eos_id,
+                                    temperature=temperature, top_k=top_k,
+                                    generator=generator),
+                device=state.tokens.device,
+                static=(config, temperature, top_k, eos_id),
+                bound=(params, state), mutated=state, generator=generator)
+
+
 def decode_steps(params: dict, state: DecodeState, config: ModelConfig,
                  eos_id: int, n: int, *, temperature: float = 0.0,
                  top_k: int | None = None,
@@ -361,6 +553,26 @@ def decode_steps(params: dict, state: DecodeState, config: ModelConfig,
     for _ in range(n):
         decode_step(params, state, config, eos_id, temperature=temperature,
                     top_k=top_k, generator=generator)
+
+
+@torch.no_grad()
+def decode_steps_jit(params: dict, state: DecodeState, config: ModelConfig,
+                     eos_id: int, n: int, *, temperature: float = 0.0,
+                     top_k: int | None = None,
+                     generator: torch.Generator | None = None,
+                     programs=None) -> None:
+    """:func:`decode_steps` as ONE compiled program per (config, n,
+    temperature, top_k, eos_id) on this state, the reference's scan of n
+    steps: a CUDA-graph capture of the n steps (:mod:`._graphs`), not
+    ``torch.jit``, replayed with one host call a tick.  On the CPU it runs
+    the steps."""
+    _graphs.run(programs, "decode_steps",
+                lambda: decode_steps(params, state, config, eos_id, n,
+                                     temperature=temperature, top_k=top_k,
+                                     generator=generator),
+                device=state.tokens.device,
+                static=(config, n, temperature, top_k, eos_id),
+                bound=(params, state), mutated=state, generator=generator)
 
 
 # ---- host-side engine (pure control plane) ----------------------------------
@@ -386,6 +598,13 @@ class ServingEngine:
     Streaming: ``on_tokens(rid, [token_ids])`` fires after each tick with
     the GENERATED tokens newly committed for that request; it costs one
     extra readback per tick, and none when no callback is set.
+
+    All device work goes through the compiled programs, as the reference's
+    engine does: on CUDA each replays its CUDA graph from this engine's
+    :attr:`programs` (one graph per bucket or chunk width, one decode
+    program per ``steps_per_tick``), on the CPU it runs its body.  The
+    queue, slot choice, harvest and streaming stay on the host between
+    replays.  :meth:`_program` is the one place that calls them.
     """
 
     def __init__(self, params: dict, config: ModelConfig, *, slots: int,
@@ -433,6 +652,8 @@ class ServingEngine:
         self._streamed: dict[int, int] = {}
         self.state = init_state(config, slots, max_len + buffer_margin,
                                 device=self.device)
+        # The captured programs of this engine, on one graph memory pool.
+        self.programs = _graphs.Programs()
         # (id, prompt-or-suffix, max_new, prefix id or None)
         self._queue: list[tuple[int, list[int], int, int | None]] = []
         # slot -> (rid, max_len row, prompt_len, max_new, next start, chunk)
@@ -448,6 +669,13 @@ class ServingEngine:
     def _dev(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, dtype=np.int64), device=self.device)
 
+    def _program(self, name: str, *args, **kw):
+        """Run the device program ``name`` (``"admit"``, ``"decode_steps"``,
+        ...): its ``_jit`` form on this engine's :attr:`programs`.  Host
+        arrays go in as host tensors; the program copies them into its
+        static buffers."""
+        return _PROGRAMS[name](*args, programs=self.programs, **kw)
+
     # -- request surface --
 
     def register_prefix(self, tokens: list[int] | np.ndarray) -> int:
@@ -460,7 +688,8 @@ class ServingEngine:
             raise ValueError(
                 f"prefix {len(tokens)} + smallest bucket {self.buckets[0]} "
                 f"exceeds max_len {self.max_len}")
-        cache = build_prefix_cache(self.params, self.config, self._dev(tokens))
+        cache = self._program("build_prefix_cache", self.params, self.config,
+                              _host(tokens))
         pid = self._next_id
         self._next_id += 1
         self._prefixes[pid] = (tokens, cache)
@@ -523,15 +752,15 @@ class ServingEngine:
         it never run."""
         rid, row, plen, max_new, start, ch = self._prefilling[slot]
         if start + ch < plen:  # a later chunk holds position plen-1
-            prefill_chunk(self.params, self.state, self.config, slot,
-                          self._dev(row[start:start + ch]), start)
+            self._program("prefill_chunk", self.params, self.state, self.config,
+                          slot, _host(row[start:start + ch]), start)
             self._prefilling[slot] = (rid, row, plen, max_new, start + ch, ch)
         else:
-            admit_final_chunk(
-                self.params, self.state, self.config, slot, self._dev(row),
-                self._dev(row[start:start + ch]), start, plen, rid, max_new,
-                self.eos_id, temperature=self.temperature, top_k=self.top_k,
-                generator=self.generator)
+            self._program(
+                "admit_final_chunk", self.params, self.state, self.config, slot,
+                _host(row), _host(row[start:start + ch]), start, plen, rid,
+                max_new, self.eos_id, temperature=self.temperature,
+                top_k=self.top_k, generator=self.generator)
             del self._prefilling[slot]
             self.metrics["admitted"] += 1
             self._post_admit(slot, row, plen)
@@ -556,7 +785,7 @@ class ServingEngine:
                 row = np.zeros((self.max_len,), np.int64)
                 row[:P] = ptoks
                 row[P:P + len(prompt)] = prompt
-                copy_prefix(self.state, pcache, slot)
+                self._program("copy_prefix", self.state, pcache, slot)
                 self.metrics["prefix_admits"] += 1
                 ch = (self.prefill_chunk
                       if self.prefill_chunk and pad > self.prefill_chunk
@@ -577,10 +806,10 @@ class ServingEngine:
                 continue
             padded = np.zeros((pad,), np.int64)
             padded[:len(prompt)] = prompt
-            admit(self.params, self.state, self.config, slot,
-                  self._dev(padded), len(prompt), rid, max_new, self.eos_id,
-                  temperature=self.temperature, top_k=self.top_k,
-                  generator=self.generator)
+            self._program("admit", self.params, self.state, self.config, slot,
+                          _host(padded), len(prompt), rid, max_new, self.eos_id,
+                          temperature=self.temperature, top_k=self.top_k,
+                          generator=self.generator)
             self.metrics["admitted"] += 1
             self._post_admit(slot, padded, len(prompt))
 
@@ -644,9 +873,15 @@ class ServingEngine:
                 self._streamed[seq[slot]] = cur
 
     def _decode_tick(self) -> None:
-        decode_steps(self.params, self.state, self.config, self.eos_id,
-                     self.steps_per_tick, temperature=self.temperature,
-                     top_k=self.top_k, generator=self.generator)
+        """``steps_per_tick`` decode steps in one program: one replay a tick."""
+        kw = dict(temperature=self.temperature, top_k=self.top_k,
+                  generator=self.generator)
+        if self.steps_per_tick == 1:
+            self._program("decode_step", self.params, self.state, self.config,
+                          self.eos_id, **kw)
+        else:
+            self._program("decode_steps", self.params, self.state, self.config,
+                          self.eos_id, self.steps_per_tick, **kw)
         self.metrics["decode_steps"] += self.steps_per_tick
 
     def run(self, max_steps: int = 100_000) -> dict[int, list[int]]:
@@ -659,3 +894,16 @@ class ServingEngine:
                 break
         self._harvest()
         return dict(self._results)
+
+
+def _host(a) -> torch.Tensor:
+    """A host int64 tensor of ``a``, which a program copies to the device."""
+    return torch.from_numpy(np.array(a, dtype=np.int64))
+
+
+# The engine's device programs by name (:meth:`ServingEngine._program`).
+_PROGRAMS = {"admit": admit_jit, "prefill_chunk": prefill_chunk_jit,
+             "admit_final_chunk": admit_final_chunk_jit,
+             "build_prefix_cache": build_prefix_cache_jit,
+             "copy_prefix": copy_prefix_jit, "decode_step": decode_step_jit,
+             "decode_steps": decode_steps_jit}
