@@ -17,7 +17,9 @@ On the CPU every program runs its body eagerly, so the CPU tests hold:
 - the capture logic itself, through a stand-in graph whose replay re-runs
   the body on the static buffers: an engine whose programs all replay so
   gives the eager engine's tokens, with one capture per (program, width),
-  and a capture error raises with nothing run eagerly in its place.
+  and a capture error raises with nothing run eagerly in its place; the
+  process-wide default keeps one graph per shape, a new params tree
+  replacing it.
 
 The ``cuda``-marked test holds a real replay against the eager run bit for
 bit on the card, one capture per key, and a recapture when the params'
@@ -323,7 +325,7 @@ class _StandInGraph:
             dst.copy_(src)
 
 
-def _stand_in_capture(self, name, body, device, inputs, mutated, generator):
+def _stand_in_capture(self, name, body, device, inputs, mutated, generator, bound_sig):
     """Programs._capture on the CPU: static buffers, the outputs' tensors
     from a run whose mutations are undone (the capture itself computes
     nothing), and a stand-in graph."""
@@ -333,8 +335,8 @@ def _stand_in_capture(self, name, body, device, inputs, mutated, generator):
     for t, s in zip(_graphs.tensors(mutated), saved):
         t.copy_(s)
     self.captures[name] += 1
-    return _graphs._Entry(_StandInGraph(body, static_in, outputs), static_in, outputs,
-                          {}, generator)
+    return _graphs._Entry(bound_sig, _StandInGraph(body, static_in, outputs), static_in,
+                          outputs, {}, generator)
 
 
 @pytest.fixture
@@ -434,14 +436,38 @@ def test_capture_error_raises_and_runs_nothing_eagerly(weights, monkeypatch):
         eng.step()
 
 
-def test_rope_tables_are_built_once_and_never_inside_a_capture(monkeypatch):
-    cfg = tm.ModelConfig(**BASE)
-    a = tm._rope_tables(cfg, 24, "cpu")
-    assert tm._rope_tables(cfg, 24, torch.device("cpu")) is a
-    monkeypatch.setattr(_graphs, "capturing", lambda device: True)
-    assert tm._rope_tables(cfg, 24, "cpu") is a  # built before: fine
-    with pytest.raises(RuntimeError, match="inside a CUDA graph capture"):
-        tm._rope_tables(cfg, 25, "cpu")
+def test_default_programs_keep_one_graph_per_shape(weights, stand_in, monkeypatch):
+    """The process-wide programs of the ``*_jit`` calls that name no owner
+    hold one graph per shape: a params tree at other storage replaces the
+    graph (and frees its outputs) instead of adding one; another shape
+    adds one.  Each replay still gives its own tree's logits."""
+    _, tp = weights
+    monkeypatch.setattr(_graphs, "_DEFAULT", _graphs.Programs(latest_only=True))
+    progs = _graphs._DEFAULT
+    moved = {k: (v.clone() if torch.is_tensor(v) else {n: w.clone() for n, w in v.items()})
+             for k, v in tp.items()}
+    moved["final_norm"] = moved["final_norm"] * 0.5
+    tokens = torch.tensor([[1, 2, 3, 4]])
+    for tree in (tp, moved, tp):
+        got = tm.forward_jit(tree, tokens, TCFG)
+        assert torch.equal(got, tm.forward(tree, tokens, TCFG))
+        assert len(progs._graphs) == 1
+    assert progs.captures["forward"] == 3
+    tm.forward_jit(tp, tokens[:, :3], TCFG)
+    tm.forward_jit(tp, tokens, TCFG)
+    assert len(progs._graphs) == 2 and progs.captures["forward"] == 4
+
+
+@pytest.mark.parametrize("theta", [10000.0, 500000.0])
+def test_rope_tables_match_the_reference(theta):
+    """The tables, built with theta as a CPU scalar (a capture records
+    them with the body), equal the reference's within one f32 ulp at
+    |x| <= 1: the two frameworks' cos and sin round differently."""
+    cfg = dataclasses.replace(TCFG, rope_theta=theta)
+    jcfg = dataclasses.replace(JCFG, rope_theta=theta)
+    for got, ref in zip(tm._rope_tables(cfg, 40, "cpu"), jm._rope_tables(jcfg, 40)):
+        assert got.dtype == torch.float32 and tuple(got.shape) == (40, 4)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=6e-8)
 
 
 def test_a_capture_counts_launches_at_replay(monkeypatch):
@@ -449,8 +475,8 @@ def test_a_capture_counts_launches_at_replay(monkeypatch):
     progs = _graphs.Programs()
     kern = _kernels.FLASH_FWD
 
-    def capture(self, name, body, device, inputs, mutated, generator):
-        return _graphs._Entry(_StandInGraph(lambda: None, (), None), (), None,
+    def capture(self, name, body, device, inputs, mutated, generator, bound_sig):
+        return _graphs._Entry(bound_sig, _StandInGraph(lambda: None, (), None), (), None,
                               {kern: 32}, None)
 
     monkeypatch.setattr(_graphs, "graphed", lambda device: True)
@@ -489,6 +515,16 @@ def test_replays_on_the_card_equal_the_eager_run(cuda):
     assert torch.equal(td.generate_jit(moved, prompt, cfg, max_new=6, programs=progs),
                        outs[0])
     assert progs.captures["generate"] == 2
+
+    # A replay after forwards at many other lengths (whose temporaries
+    # reuse freed memory) still reads only what its graph holds.
+    tokens = prompt.repeat(1, 4)
+    want = tm.forward(params, tokens, cfg)
+    assert torch.equal(tm.forward_jit(params, tokens, cfg, programs=progs), want)
+    for n in range(1, 41):
+        tm.forward(params, prompt[:, : 1 + n % 5].repeat(1, 1 + n // 5), cfg)
+    assert torch.equal(tm.forward_jit(params, tokens, cfg, programs=progs), want)
+    assert progs.captures["forward"] == 1
 
     class Eager(ts.ServingEngine):
         def _program(self, program, *args, **kw):

@@ -28,10 +28,16 @@ bakes in:
   reads a stale pointer;
 - the device and the sampling generator, if any.
 
+An engine's programs keep every graph they capture: its bound trees live
+as long as it does.  The process-wide default of the ``*_jit`` calls that
+name no owner keeps one graph per program, static arguments, input shapes
+and device: a call on other bound storage (a reloaded params tree)
+replaces that graph, so a process holds one graph, and one set of pool
+outputs, per shape and not one per tree it ever passed.
+
 Before its capture a program runs once eagerly on a side stream (cuBLAS
-handles and workspaces, a kernel library's first load, the RoPE tables'
-cache), with the tensors it mutates and the generator's state put back
-afterwards.  The capture records; the replay that follows does the call's
+handles and workspaces, a kernel library's first load), with the tensors
+it mutates and the generator's state put back afterwards.  The capture records; the replay that follows does the call's
 work.  Nothing falls back: on CUDA a capture or replay that fails raises.
 On the CPU, which only a caller who asks for it gets, a program runs its
 body eagerly.
@@ -92,6 +98,7 @@ def signature(tree):
 
 
 class _Entry(NamedTuple):
+    bound: tuple            # the signature of the bound trees it reads
     graph: torch.cuda.CUDAGraph
     inputs: tuple           # the static input buffers
     outputs: object         # what the captured body returned (pool tensors)
@@ -102,9 +109,11 @@ class _Entry(NamedTuple):
 class Programs:
     """The captured programs of one owner: graphs by key, one shared graph
     memory pool, and counts (``captures`` and ``replays`` per program
-    name, ``capture_seconds``)."""
+    name, ``capture_seconds``).  With ``latest_only``, one graph per key
+    less the bound trees' signature: other bound storage replaces it."""
 
-    def __init__(self) -> None:
+    def __init__(self, latest_only: bool = False) -> None:
+        self.latest_only = latest_only
         self._graphs: dict = {}
         self.pool = None
         self.captures: collections.Counter = collections.Counter()
@@ -128,12 +137,19 @@ class Programs:
         if not graphed(device):
             return body(*inputs)
         device = torch.device(device)
+        bound_sig = signature(bound)
         key = (name, static, device,
                tuple((tuple(t.shape), t.dtype) for t in inputs),
-               signature(bound), None if generator is None else id(generator))
+               None if generator is None else id(generator))
+        if not self.latest_only:
+            key += (bound_sig,)
         entry = self._graphs.get(key)
+        if entry is not None and entry.bound != bound_sig:
+            del self._graphs[key], entry  # free its outputs before the capture
+            entry = None
         if entry is None:
-            entry = self._capture(name, body, device, inputs, mutated, generator)
+            entry = self._capture(name, body, device, inputs, mutated, generator,
+                                  bound_sig)
             self._graphs[key] = entry
         else:
             for buf, t in zip(entry.inputs, inputs):
@@ -144,7 +160,8 @@ class Programs:
             kernel.launches += n
         return entry.outputs
 
-    def _capture(self, name, body, device, inputs, mutated, generator) -> _Entry:
+    def _capture(self, name, body, device, inputs, mutated, generator,
+                 bound_sig) -> _Entry:
         t0 = time.perf_counter()
         with torch.cuda.device(device):
             static_in = tuple(t.to(device, copy=True) for t in inputs)
@@ -160,7 +177,7 @@ class Programs:
         launches = {k: k.captured - n for k, n in before.items() if k.captured != n}
         self.captures[name] += 1
         self.capture_seconds += time.perf_counter() - t0
-        return _Entry(graph, static_in, outputs, launches, generator)
+        return _Entry(bound_sig, graph, static_in, outputs, launches, generator)
 
 
 def _warm_up(body, inputs, mutated, generator) -> None:
@@ -181,8 +198,9 @@ def _warm_up(body, inputs, mutated, generator) -> None:
 
 
 # The programs of the ``*_jit`` calls that name no owner: one process-wide
-# cache, as the reference's ``jax.jit`` keeps one.
-_DEFAULT = Programs()
+# cache, as the reference's ``jax.jit`` keeps one, holding the latest graph
+# of each shape.
+_DEFAULT = Programs(latest_only=True)
 
 
 def run(programs: Programs | None, name: str, body: Callable, **kw):

@@ -194,29 +194,15 @@ def _rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def _rope_tables(config: ModelConfig, seq: int, device) -> tuple:
-    """(cos, sin), each [S, Hd/2] f32, built once per (head dim, theta,
-    length, device) and shared by every caller, which only reads them.
-    Building them copies theta from the host, which a CUDA graph cannot
-    record: a compiled program's warm-up builds them before its capture."""
-    key = (config.head_dim, config.rope_theta, seq, torch.device(device))
-    if key not in _ROPE:
-        if _graphs.capturing(device):
-            raise RuntimeError(f"RoPE tables {key} first asked for inside a CUDA "
-                               "graph capture: build them before it")
-        half = config.head_dim // 2
-        exponent = -torch.arange(0, half, dtype=torch.float32, device=device) / half
-        freqs = torch.pow(torch.tensor(config.rope_theta, dtype=torch.float32,
-                                       device=device), exponent)
-        angles = (torch.arange(seq, dtype=torch.float32, device=device)[:, None]
-                  * freqs[None, :])
-        if len(_ROPE) >= _ROPE_KEEP:
-            _ROPE.pop(next(iter(_ROPE)))  # the oldest
-        _ROPE[key] = (torch.cos(angles), torch.sin(angles))
-    return _ROPE[key]
-
-
-_ROPE: dict = {}
-_ROPE_KEEP = 32
+    """(cos, sin), each [S, Hd/2] f32.  theta stays a 0-dim CPU tensor,
+    which a CUDA op takes as a kernel argument: no host-to-device copy, so
+    a CUDA graph capture records the tables' few kernels like any others."""
+    half = config.head_dim // 2
+    exponent = -torch.arange(0, half, dtype=torch.float32, device=device) / half
+    freqs = torch.pow(torch.tensor(config.rope_theta, dtype=torch.float32), exponent)
+    angles = (torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+              * freqs[None, :])
+    return torch.cos(angles), torch.sin(angles)
 
 
 def _apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
