@@ -91,6 +91,23 @@ seconds capturing, graph pool bytes and peak memory of both; after
 ``moe_decode_serve``, ``compiled_moe``, the same equality for the MoE
 engine.
 
+The last compiled programs: the speculative ones and the training steps,
+which the reference jits with their state donated.  ``train``,
+``lora_train`` and ``vision`` then replay through them (the eager
+``train_step`` and ``lora_train_step`` record the fingerprint of every
+step); after ``spec_serve``, ``compiled_spec``: ``spec_generate`` replayed
+(a prefill and a device-scalar verify step, in rounds with one readback
+each) against its eager body at bf16 on 32 layers and at f32 on 2, and the
+speculative engine replayed against its eager-driven twin, tokens equal
+and 0 host ops in a replayed tick besides its one readback; in the
+multi-GPU block, over the world-1 NCCL group, ``compiled_train`` (the
+sharded step's program at the training shape, 3 calls, each bit for bit
+an eager ``train_step``, 8/4/4 launches a replay; then the MoE model at 1
+layer) and ``compiled_lora`` (the adapter's step, raw base and the QLoRA
+int4 one); after ``vision``, ``compiled_vision`` (20 replayed steps against
+20 eager ones, the losses bit for bit).  The gloo ranks of
+``tp2_gloo_cuda`` run their steps eagerly: 0 captures, 0 replays.
+
 Then the seconds of each phase, one ``kernels`` line, the card's
 ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
@@ -331,6 +348,16 @@ VISION_STEPS, VISION_BATCH = 20, 64
 # COMPILED_OPS_WARM steps.
 COMPILED_INT8_REQUESTS = 8
 COMPILED_OPS_REQUESTS, COMPILED_OPS_WARM = 2, 2
+# The jitted training steps (donated programs): COMPILED_CALLS calls of each,
+# the first its warm-up (which does the step) and capture, the rest
+# replays, each held bit for bit against the eager step from the same seed.
+# The MoE step at Mixtral width goes through the same program at 1 layer
+# (moe_train runs 2 eagerly, 62.0 GB at its peak; the program's pool keeps
+# the grads and saved activations resident beside the state, so the depth
+# is cut to 1 for memory).  The QLoRA int4 base trains on [1, 256]: the
+# grouped int4 head's f32 partials are [tokens, 32, 128256], 33.6 GB at
+# 2048 tokens before its backward.
+COMPILED_CALLS, COMPILED_MOE_LAYERS, QLORA_INT4_SEQ = 3, 1, 256
 # The keys the reference CLI prints (tputopo/workloads/__main__.py).
 CLI_KEYS = {
     "decode": {"batch", "prompt_len", "max_new", "mesh", "decode_tokens_per_s", "wall_s"},
@@ -723,14 +750,18 @@ def picks_vs_forward(tt, params, cfg, rows, plens) -> dict:
 
 class _OpCount(TorchDispatchMode):
     """Counts the ATen operations dispatched inside it: each is a host
-    round trip through the dispatcher and, on the card, a kernel launch."""
+    round trip through the dispatcher and, on the card, a kernel launch,
+    but ``reads``, the scalar readbacks (``int(t)``, ``t.item()``), which
+    wait for the device instead."""
 
     def __init__(self):
         super().__init__()
         self.n = 0
+        self.reads = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         self.n += 1
+        self.reads += func is torch.ops.aten._local_scalar_dense.default
         return func(*args, **(kwargs or {}))
 
 
@@ -895,22 +926,25 @@ def pool_bytes(pool) -> int | None:
 
 def eager_engine(base):
     """``base`` driven eagerly: every device program is its eager body
-    (``serving.admit`` for ``admit_jit`` ...), with no capture."""
-    from tputopo_torch import serving
+    (``serving.admit`` for ``admit_jit``, ``speculative.spec_tick_eager``
+    for ``spec_tick`` ...), with no capture."""
+    from tputopo_torch import serving, speculative
 
     class Eager(base):
         def _program(self, name, *args, **kw):
-            return getattr(serving, name)(*args, **kw)
+            fn = speculative.EAGER_PROGRAMS.get(name) or getattr(serving, name)
+            return fn(*args, **kw)
 
     return Eager
 
 
-def ops_per_tick(engine, params, cfg) -> dict:
+def ops_per_tick(engine, params, cfg, settings=None) -> dict:
     """Host ATen operations of one decode tick and of one whole engine step
     (harvest, admission, the tick, its readbacks), on an engine of
-    ``engine``'s class serving two short requests after its programs were
-    captured (COMPILED_OPS_WARM steps)."""
-    eng = engine(params, cfg, **SERVE_ENGINE)
+    ``engine``'s class (``settings``, by default SERVE_ENGINE's) serving two
+    short requests after its programs were captured (COMPILED_OPS_WARM
+    steps); the scalar readbacks among them beside."""
+    eng = engine(params, cfg, **(settings or SERVE_ENGINE))
     for i in range(COMPILED_OPS_REQUESTS):
         eng.submit(list(range(1, 17 + i)), max_new=16)
     for _ in range(COMPILED_OPS_WARM):
@@ -919,7 +953,8 @@ def ops_per_tick(engine, params, cfg) -> dict:
         eng._decode_tick()
     with _OpCount() as step:
         eng.step()
-    return {"decode_tick": tick.n, "engine_step": step.n}
+    return {"decode_tick": tick.n, "engine_step": step.n,
+            "decode_tick_readbacks": tick.reads, "engine_step_readbacks": step.reads}
 
 
 def phase_compiled(tt, kernels, params, cfg, tokens, prompt, stream, serve_runs,
@@ -1144,7 +1179,7 @@ def phase_spec_serve(tt, kernels, params, cfg) -> dict:
     prefix: every request its budget, every pick within GEN_GAP of the
     forward, no flash launch, 0 <= drafted_accepted <= generated; tokens/s,
     TTFT, target streams and the share of equal tokens for both.  Returns
-    the speculative run's flash launches."""
+    the speculative run's flash launches, the run and its requests."""
     from tputopo_torch.speculative import SpecServingEngine
 
     t_phase = time.perf_counter()
@@ -1186,7 +1221,7 @@ def phase_spec_serve(tt, kernels, params, cfg) -> dict:
     check(not any(launches.values()), f"spec_serve launched a flash kernel: {launches}")
     check(0 <= accepted <= spec["generated"],
           f"spec_serve: drafted_accepted {accepted} outside [0, {spec['generated']}]")
-    return launches
+    return launches, spec, reqs
 
 
 def phase_lora_serve(tt, kernels, params, cfg) -> dict:
@@ -1296,7 +1331,7 @@ def phase_lora_train(tt, kernels) -> tuple:
     base's loss_fn bit for bit (b = 0), the loss falls over
     LORA_TRAIN_STEPS steps, 8/4/4 launches each step, the frozen base's
     leaf sums unchanged bit for bit.  Returns (launches of the last step,
-    (step 1's loss, the state's fingerprint after it))."""
+    (loss, the state's fingerprint) after each step, the steps' ms)."""
     from tputopo_torch import lora
     from tputopo_torch import train as tr
 
@@ -1309,10 +1344,10 @@ def phase_lora_train(tt, kernels) -> tuple:
         base_loss = tr.loss_fn(base, tokens, cfg).item()
     want = {"flash_fwd": 2 * TRAIN_LAYERS, "flash_bwd_dq": TRAIN_LAYERS,
             "flash_bwd_dkv": TRAIN_LAYERS}
-    losses, step_ms, first = [], [], None
+    losses, step_ms, trace = [], [], []
     torch.cuda.reset_peak_memory_stats()
     state_before = card_state()
-    for i in range(LORA_TRAIN_STEPS):
+    for _ in range(LORA_TRAIN_STEPS):
         reset(kernels)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1322,8 +1357,7 @@ def phase_lora_train(tt, kernels) -> tuple:
         launches = launch_counts(kernels)
         check(launches == want, f"lora step launched {launches}, want {want}")
         losses.append(loss.item())
-        if i == 0:
-            first = (loss.item(), fingerprint(state))
+        trace.append((loss.item(), fingerprint(state)))
     after = leaf_sums(base)
     rec = {"phase": "lora_train", "model": "llama3_8b", "layers": TRAIN_LAYERS,
            "tokens": [1, TRAIN_SEQ], "remat": cfg.remat, "lr": TRAIN_LR,
@@ -1346,7 +1380,7 @@ def phase_lora_train(tt, kernels) -> tuple:
           "lora training wrote or differentiated the frozen base")
     emit(device_profile("lora_train_step", lambda: lora.lora_train_step(
         state, base, tokens, cfg, lr=TRAIN_LR)))
-    return launches, first
+    return launches, trace, step_ms
 
 
 def phase_sharded_lora_world1(tt, kernels, first) -> dict:
@@ -1378,6 +1412,319 @@ def phase_sharded_lora_world1(tt, kernels, first) -> dict:
     check(loss.item() == ref_loss and not diff,
           f"world-1 sharded lora step differs from lora_train_step: {rec}")
     return launches
+
+
+# ---- the last compiled programs: the speculative ones and the training steps
+
+def replay_calls(step, state, args, kernels, trace) -> tuple:
+    """COMPILED_CALLS calls of a jitted training step, ``step(state, *args)``:
+    each call's ms, kernel launches (the first call's from its warm-up, run
+    eagerly; a replay's as its capture recorded them), loss, and the leaves
+    of the state's fingerprint that differ from ``trace``'s, the eager
+    steps' (loss, fingerprint) from the same seed.  Returns (the state, the
+    record, with the program's captures, replays, capture seconds, pool
+    bytes and the calls' peak memory, allocated and reserved)."""
+    calls = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(COMPILED_CALLS):
+        reset(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, *args)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = launch_counts(kernels)
+        got = fingerprint(state)
+        ref_loss, ref = trace[i]
+        calls.append({"ms": ms, "launches": launches, "loss": loss.item(),
+                      "eager_loss": ref_loss,
+                      "leaves_differing": sorted(n for n in ref if got[n] != ref[n])})
+    progs = step.programs
+    rec = {"calls": calls, "first_call_ms": calls[0]["ms"],
+           "replay_ms": [c["ms"] for c in calls[1:]], "leaves_compared": len(trace[0][1]),
+           "captures": dict(progs.captures), "replays": dict(progs.replays),
+           "capture_s": progs.capture_seconds, "pool_bytes": pool_bytes(progs.pool),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           # the pool's segments are reserved, not allocated, between replays
+           "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9}
+    return state, rec
+
+
+def check_replay_calls(what: str, rec: dict, layers: int) -> None:
+    """Every call bit for bit the eager step of its index, 2·L/L/L
+    launches each, one capture and COMPILED_CALLS - 1 replays."""
+    want = {"flash_fwd": 2 * layers, "flash_bwd_dq": layers, "flash_bwd_dkv": layers}
+    for i, c in enumerate(rec["calls"], start=1):
+        check(c["loss"] == c["eager_loss"] and not c["leaves_differing"],
+              f"{what}: call {i} is not eager step {i} bit for bit: {c}")
+        check(c["launches"] == want, f"{what}: call {i} launched {c['launches']}, want {want}")
+    name = next(iter(rec["captures"]), None)
+    check(rec["captures"] == {name: 1} and rec["replays"] == {name: COMPILED_CALLS - 1},
+          f"{what}: captures {rec['captures']}, replays {rec['replays']}")
+
+
+def release(step) -> None:
+    """Drop a step's graphs and give their pool back to the card."""
+    step.programs.release()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_compiled_train(tt, kernels, tokens, trace, eager_ms) -> dict:
+    """make_sharded_train_step's program on {dp: 1, tp: 1} over the world-1
+    NCCL group at the training shape, from phase train's seed: COMPILED_CALLS
+    calls, the first the warm-up (which does the step in place) and the
+    capture, then replays; each call's loss and fingerprint bit for bit
+    eager train_step's, 8/4/4 launches each, one capture.  Replayed ms
+    beside phase train's eager ms, capture seconds, pool bytes, peak
+    memory.  Then the MoE model at Mixtral width, COMPILED_MOE_LAYERS deep,
+    through the same program against its eager train_step.  Returns the
+    launches of the dense step's last replay."""
+    from tputopo_torch import sharding as sh
+    from tputopo_torch import train as tr
+
+    t_phase = time.perf_counter()
+    plan = sh.build_mesh({"dp": 1, "tp": 1}, device="cuda")
+    cfg = model_config(tt, "llama3_8b", TRAIN_LAYERS)
+    state = tr.make_sharded_state(plan, cfg, 0, lr=TRAIN_LR)
+    step = tr.make_sharded_train_step(plan, cfg, lr=TRAIN_LR)
+    state, dense = replay_calls(step, state, (sh.local_batch(plan, tokens),), kernels,
+                                trace)
+    dense.update(model="llama3_8b", layers=TRAIN_LAYERS, tokens=list(tokens.shape),
+                 eager_train_step_ms=eager_ms)
+    del state
+    release(step)
+
+    mcfg = model_config(tt, "mixtral_8x7b", COMPILED_MOE_LAYERS)
+    mtokens = torch.randint(0, mcfg.vocab_size, (1, MOE_SEQ), device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(8))
+    eager = tt.make_train_state(mcfg, 0, lr=TRAIN_LR)
+    mtrace, meager_ms = [], []
+    for _ in range(COMPILED_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager, loss = tt.train_step(eager, mtokens, mcfg, lr=TRAIN_LR)
+        torch.cuda.synchronize()
+        meager_ms.append((time.perf_counter() - t0) * 1e3)
+        mtrace.append((loss.item(), fingerprint(eager)))
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = tr.make_sharded_state(plan, mcfg, 0, lr=TRAIN_LR)
+    step = tr.make_sharded_train_step(plan, mcfg, lr=TRAIN_LR)
+    state, moe = replay_calls(step, state, (mtokens,), kernels, mtrace)
+    moe.update(model="mixtral_8x7b", layers=COMPILED_MOE_LAYERS, tokens=[1, MOE_SEQ],
+               eager_train_step_ms=meager_ms)
+    del state
+    release(step)
+    rec = {"phase": "compiled_train", "mesh": plan.axes, "backend": "nccl",
+           "dense": dense, "moe": moe, "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    check_replay_calls("compiled_train", dense, TRAIN_LAYERS)
+    check_replay_calls("compiled_train moe", moe, COMPILED_MOE_LAYERS)
+    return dense["calls"][-1]["launches"]
+
+
+def phase_compiled_lora(tt, kernels, trace, eager_ms) -> dict:
+    """make_sharded_lora_train_step's program on {dp: 1, tp: 1} over the
+    world-1 NCCL group at the training shape, from phase lora_train's
+    seeds: COMPILED_CALLS calls, each bit for bit eager lora_train_step's,
+    8/4/4 launches each, one capture.  Then the same over the QLoRA base,
+    grouped int4 (group 128), on the tokens' first QLORA_INT4_SEQ, against
+    its own eager steps.  Returns the launches of the raw-base step's last
+    replay."""
+    from tputopo_torch import lora
+    from tputopo_torch import sharding as sh
+    from tputopo_torch import train as tr
+
+    t_phase = time.perf_counter()
+    cfg, base, tokens = lora_setup(tt)
+    plan = sh.build_mesh({"dp": 1, "tp": 1}, device="cuda")
+    state = lora.make_sharded_lora_state(plan, cfg, 1, rank=LORA_RANK, lr=TRAIN_LR)
+    step = lora.make_sharded_lora_train_step(plan, cfg, state.params, lr=TRAIN_LR)
+    state, raw = replay_calls(step, state, (base, sh.local_batch(plan, tokens)), kernels,
+                              trace)
+    raw.update(base="f32", tokens=list(tokens.shape), eager_lora_train_step_ms=eager_ms)
+    del state
+    release(step)
+
+    q4 = tt.quantize_params(base, bits=4, group_size=SERVE_INT4_GROUP)
+    del base
+    short = tokens[:, :QLORA_INT4_SEQ]
+    adapter = lora.init_lora(cfg, 1, rank=LORA_RANK)
+    eager = tr.TrainState(params=adapter,
+                          opt_state=tr.make_optimizer(TRAIN_LR).init(adapter),
+                          step=torch.zeros((), dtype=torch.int32, device="cuda"))
+    qtrace, qeager_ms = [], []
+    for _ in range(COMPILED_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager, loss = lora.lora_train_step(eager, q4, short, cfg, lr=TRAIN_LR)
+        torch.cuda.synchronize()
+        qeager_ms.append((time.perf_counter() - t0) * 1e3)
+        qtrace.append((loss.item(), fingerprint(eager)))
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = lora.make_sharded_lora_state(plan, cfg, 1, rank=LORA_RANK, lr=TRAIN_LR)
+    step = lora.make_sharded_lora_train_step(plan, cfg, state.params, lr=TRAIN_LR)
+    state, qlora = replay_calls(step, state, (q4, short), kernels, qtrace)
+    qlora.update(base=f"int4, group {SERVE_INT4_GROUP}", tokens=list(short.shape),
+                 eager_lora_train_step_ms=qeager_ms)
+    del state, q4
+    release(step)
+    rec = {"phase": "compiled_lora", "model": "llama3_8b", "layers": TRAIN_LAYERS,
+           "rank": LORA_RANK, "mesh": plan.axes, "backend": "nccl", "raw": raw,
+           "qlora_int4": qlora, "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    check_replay_calls("compiled_lora", raw, TRAIN_LAYERS)
+    check_replay_calls("compiled_lora int4", qlora, TRAIN_LAYERS)
+    return raw["calls"][-1]["launches"]
+
+
+def phase_compiled_vision(tt) -> None:
+    """make_vision_train_step's program on the reference's classifier, bf16,
+    batch VISION_BATCH: VISION_STEPS calls against VISION_STEPS steps of its
+    eager body (vision_train_step) from the same seed, the losses bit for
+    bit; each step's ms on the host clock (a readback ends each), one
+    capture and VISION_STEPS - 1 replays."""
+    from tputopo_torch import train as tr
+    from tputopo_torch import vision as tv
+
+    t_phase = time.perf_counter()
+    cfg = tv.VisionConfig()
+    images, labels = tv.synthetic_batch(cfg, VISION_BATCH, 0)
+
+    def trace(step):
+        params = tv.init_vision_params(cfg, 0)
+        opt_state = tr.Adam(lr=1e-3).init(params)
+        losses, ms = [], []
+        for _ in range(VISION_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt_state, loss = step(params, opt_state)
+            losses.append(loss.item())
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return losses, ms
+
+    opt = tr.Adam(lr=1e-3)
+    eager = trace(lambda p, o: (p, o, tv.vision_train_step(p, o, images, labels, cfg, opt)))
+    step, _ = tv.make_vision_train_step(None, cfg, lr=1e-3)
+    replayed = trace(lambda p, o: step(p, o, images, labels))
+    progs = step.programs
+    rec = {"phase": "compiled_vision", "steps": VISION_STEPS, "batch": VISION_BATCH,
+           "losses_equal": replayed[0] == eager[0], "losses": replayed[0],
+           "replayed_step_ms": statistics.median(replayed[1][1:]),
+           "eager_step_ms": statistics.median(eager[1][1:]),
+           "first_call_ms": replayed[1][0], "captures": dict(progs.captures),
+           "replays": dict(progs.replays), "capture_s": progs.capture_seconds,
+           "pool_bytes": pool_bytes(progs.pool), "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    release(step)
+    check(rec["losses_equal"], f"compiled_vision: losses {replayed[0]} are not the "
+                               f"eager body's {eager[0]}")
+    check(rec["captures"] == {"vision_train_step": 1}
+          and rec["replays"] == {"vision_train_step": VISION_STEPS - 1},
+          f"compiled_vision: captures {rec['captures']}, replays {rec['replays']}")
+
+
+def phase_compiled_spec(tt, params, cfg, spec_run, reqs) -> None:
+    """spec_generate replayed (its prefill and verify-step programs) against
+    its eager body spec_generate_eager, the sequence of phase spec_generate:
+    at bf16 on the 32 layers and at f32 on 2, tokens and stats equal, the
+    bf16 picks within GEN_GAP of the forward and the accounting identity,
+    the f32 tokens greedy generate's; wall time of both, the verify steps
+    replayed, and the host ops and readbacks of a replayed call (one
+    readback a round).  Then the speculative engine of phase spec_serve
+    (which replayed its programs) against its eager-driven twin on the same
+    8 requests: tokens equal, a replayed tick dispatching no host op but
+    its one readback; tokens/s and TTFT of both."""
+    from tputopo_torch._graphs import Programs
+    from tputopo_torch.speculative import (SpecServingEngine, spec_generate,
+                                           spec_generate_eager)
+
+    t_phase = time.perf_counter()
+    prompt = torch.randint(0, cfg.vocab_size, (1, SPEC_PROMPT), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(9))
+
+    def run(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, stats = fn()
+        torch.cuda.synchronize()
+        return out, stats, time.perf_counter() - t0
+
+    def compare(p, c, draft_layers):
+        kw = dict(max_new=SPEC_NEW, draft_layers=draft_layers, gamma=SPEC_GAMMA)
+        progs = Programs()
+        first = run(lambda: spec_generate(p, prompt, c, programs=progs, **kw))
+        replayed = run(lambda: spec_generate(p, prompt, c, programs=progs, **kw))
+        with _OpCount() as ops:
+            spec_generate(p, prompt, c, programs=progs, **kw)
+        eager = run(lambda: spec_generate_eager(p, prompt, c, **kw))
+        steps = replayed[1]["target_steps"]
+        rec = {"layers": c.n_layers, "draft_layers": draft_layers, "stats": replayed[1],
+               "tokens_equal": bool(torch.equal(first[0], eager[0])
+                                    and torch.equal(replayed[0], eager[0])),
+               "stats_equal": first[1] == replayed[1] == eager[1],
+               "replayed_wall_s": replayed[2], "eager_wall_s": eager[2],
+               "first_call_s": first[2], "capture_s": progs.capture_seconds,
+               "pool_bytes": pool_bytes(progs.pool), "captures": dict(progs.captures),
+               "verify_steps_replayed_a_call": progs.replays["spec_step"] // 3,
+               "verify_steps": steps - 1, "host_ops_a_call": ops.n,
+               "readbacks_a_call": ops.reads,
+               "new_tokens_per_s": {"replayed": SPEC_NEW / replayed[2],
+                                    "eager": SPEC_NEW / eager[2]}}
+        progs.release()
+        return rec, replayed[0]
+
+    bf16, out = compare(params, cfg, SPEC_DRAFT_LAYERS)
+    bf16.update(picks_vs_forward(tt, params, cfg, [out[0].tolist()], [SPEC_PROMPT]))
+    cfg32 = dataclasses.replace(cfg, n_layers=SPEC_F32_LAYERS, compute_dtype=torch.float32)
+    cut = dict(params, layers={k: v[:SPEC_F32_LAYERS] for k, v in params["layers"].items()})
+    f32, out32 = compare(cut, cfg32, SPEC_F32_LAYERS - 1)
+    f32["equal_to_generate"] = bool(torch.equal(
+        out32, tt.generate(cut, prompt, cfg32, max_new=SPEC_NEW)))
+
+    eager_cls = eager_engine(SpecServingEngine)
+    eager = run_engine(tt, params, cfg, None, reqs, make=lambda cb: eager_cls(
+        params, cfg, on_tokens=cb, **SPEC_ENGINE))
+
+    def summary(r):
+        return {k: r[k] for k in ("wall_s", "tokens_per_s", "ttft_p50_s", "ttft_p95_s",
+                                  "peak_mem_gb", "programs", "metrics")}
+
+    engine = {"requests": len(reqs), "generated": eager["generated"],
+              "equal_tokens": spec_run["rows"] == eager["rows"],
+              "replayed": summary(spec_run), "eager": summary(eager),
+              "ops": {"replayed": ops_per_tick(SpecServingEngine, params, cfg, SPEC_ENGINE),
+                      "eager": ops_per_tick(eager_cls, params, cfg, SPEC_ENGINE)}}
+    rec = {"phase": "compiled_spec", "model": "llama3_8b", "gamma": SPEC_GAMMA,
+           "prompt": SPEC_PROMPT, "max_new": SPEC_NEW, "bf16": bf16, "f32": f32,
+           "engine": engine, "bound_max_gap": GEN_GAP,
+           "note": "random weights: not a speed result of speculation",
+           "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    steps, acc = bf16["stats"]["target_steps"], bf16["stats"]["drafted_accepted"]
+    for name, r in (("bf16", bf16), ("f32", f32)):
+        check(r["tokens_equal"] and r["stats_equal"],
+              f"compiled_spec {name}: replayed spec_generate differs from its eager body: {r}")
+        check(r["captures"] == {"spec_prefill": 1, "spec_step": 1}
+              and r["verify_steps_replayed_a_call"] == r["verify_steps"],
+              f"compiled_spec {name}: programs {r['captures']}, "
+              f"{r['verify_steps_replayed_a_call']} steps replayed a call")
+    check(bf16["vs_forward_max_gap"] <= GEN_GAP,
+          f"compiled_spec: a pick is off the forward's greedy pick: {bf16}")
+    check(steps + acc in (SPEC_NEW, SPEC_NEW + 1),
+          f"compiled_spec: target_steps {steps} + drafted_accepted {acc} not in "
+          f"{{{SPEC_NEW}, {SPEC_NEW + 1}}}")
+    check(f32["equal_to_generate"], f"compiled_spec: f32 is not greedy generate: {f32}")
+    check(engine["equal_tokens"],
+          "compiled_spec: the replayed speculative engine's tokens differ from the eager one's")
+    tick = engine["ops"]["replayed"]
+    check(tick["decode_tick"] - tick["decode_tick_readbacks"] == 0
+          and tick["decode_tick_readbacks"] == 1,
+          f"compiled_spec: a replayed speculative tick dispatched host ops: {engine['ops']}")
 
 
 def phase_vision(tt) -> None:
@@ -1816,7 +2163,7 @@ def phase_train(tt, kernels) -> tuple:
     """Llama-3-8B width, 4 layers, tokens [1, 2048]: one step's loss and
     grads through the kernels against the einsum path, then TRAIN_STEPS
     AdamW steps on one batch.  Returns (state, config, tokens, launches
-    of the last step)."""
+    of the last step, (loss, fingerprint) after each step, the steps' ms)."""
     from tputopo_torch import train as tr
 
     cfg = dataclasses.replace(tt.ModelConfig.llama3_8b(), n_layers=TRAIN_LAYERS)
@@ -1859,8 +2206,8 @@ def phase_train(tt, kernels) -> tuple:
     losses, step_s = [], []
     torch.cuda.reset_peak_memory_stats()
     state_before = card_state()
-    first = None
-    for i in range(TRAIN_STEPS):
+    trace = []  # what the sharded step and its program must reproduce
+    for _ in range(TRAIN_STEPS):
         reset(kernels)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1870,8 +2217,7 @@ def phase_train(tt, kernels) -> tuple:
         launches = launch_counts(kernels)
         check(launches == want, f"train step launched {launches}, want {want}")
         losses.append(loss.item())
-        if i == 0:  # what the sharded step must reproduce from the same seed
-            first = (loss.item(), fingerprint(state))
+        trace.append((loss.item(), fingerprint(state)))
     rec = {"phase": "train", "model": "llama3_8b", "layers": TRAIN_LAYERS,
            "tokens": [1, TRAIN_SEQ], "remat": cfg.remat, "lr": TRAIN_LR,
            "losses": losses, "step_ms": [t * 1e3 for t in step_s],
@@ -1882,7 +2228,7 @@ def phase_train(tt, kernels) -> tuple:
     emit(rec)
     check(all(map(math.isfinite, losses)), f"train loss not finite: {losses}")
     check(losses[-1] < losses[0], f"loss did not fall over {TRAIN_STEPS} steps: {losses}")
-    return state, cfg, tokens, launches, first
+    return state, cfg, tokens, launches, trace, [t * 1e3 for t in step_s]
 
 
 def phase_remat(kernels, state, cfg, tokens) -> None:
@@ -2159,12 +2505,15 @@ def tp2_rank_main(rank: int, workdir: str) -> int:
         reset(_kernels.KERNELS)
         sh.HOST_STAGED.update(calls=0, bytes=0)
         torch.cuda.reset_peak_memory_stats()
+        step = tr.make_sharded_train_step(plan, cfg, lr=TRAIN_LR, n_micro=opts.get("n_micro"))
         t0 = time.perf_counter()
-        state, loss = tr.make_sharded_train_step(plan, cfg, lr=TRAIN_LR,
-                                                 n_micro=opts.get("n_micro"))(
-            state, sh.local_batch(plan, tokens))
+        state, loss = step(state, sh.local_batch(plan, tokens))
         torch.cuda.synchronize()
         step_s = time.perf_counter() - t0
+        # gloo: the step ran its body eagerly, decided before the call
+        programs = {"captures": sum(step.programs.captures.values()),
+                    "replays": sum(step.programs.replays.values())}
+        del step
         launches = launch_counts(_kernels.KERNELS)
         staged = dict(sh.HOST_STAGED)
         step_peak = torch.cuda.max_memory_allocated() / 1e9
@@ -2198,6 +2547,7 @@ def tp2_rank_main(rank: int, workdir: str) -> int:
                      "single_process_s": ref_s, "launches_per_step": launches,
                      "want_launches": tp2_want(name, axes, layers, rank, opts),
                      "host_staged": staged, "step_peak_mem_gb": step_peak,
+                     "programs": programs,
                      "seconds": time.perf_counter() - t_case}
     dist.destroy_process_group()
     Path(workdir, f"rank{rank}.json").write_text(json.dumps(out))
@@ -2309,6 +2659,9 @@ def phase_tp2_gloo_cuda(ranks: dict) -> dict:
         check(all(r["launches_per_step"] == r["want_launches"] for r in per_rank),
               f"tp2_gloo_cuda {name}: launches {[r['launches_per_step'] for r in per_rank]}, "
               f"want {[r['want_launches'] for r in per_rank]}")
+        check(all(r["programs"] == {"captures": 0, "replays": 0} for r in per_rank),
+              f"tp2_gloo_cuda {name}: a gloo step was graphed: "
+              f"{[r['programs'] for r in per_rank]}")
         launches[name] = [r["launches_per_step"] for r in per_rank]
     return launches
 
@@ -2408,8 +2761,10 @@ def main() -> int:
     del serve_runs
     spec_launches = timed("spec_generate", phase_spec_generate, tt, _kernels.KERNELS,
                           params, cfg)
-    spec_serve_launches = timed("spec_serve", phase_spec_serve, tt, _kernels.KERNELS,
-                                params, cfg)
+    spec_serve_launches, spec_run, spec_reqs = timed("spec_serve", phase_spec_serve, tt,
+                                                     _kernels.KERNELS, params, cfg)
+    timed("compiled_spec", phase_compiled_spec, tt, params, cfg, spec_run, spec_reqs)
+    del spec_run
     lora_serve_launches = timed("lora_serve", phase_lora_serve, tt, _kernels.KERNELS,
                                 params, cfg)
     # The 32-layer parameters (32.1 GB) and the training state (~31 GB)
@@ -2433,8 +2788,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    state, tcfg, ttokens, step_launches, first = timed("train", phase_train, tt,
-                                                       _kernels.KERNELS)
+    state, tcfg, ttokens, step_launches, train_trace, train_ms = timed(
+        "train", phase_train, tt, _kernels.KERNELS)
     timed("profile_train_step", lambda: emit(device_profile(
         "train_step", lambda: tt.train_step(state, ttokens, tcfg, lr=TRAIN_LR))))
     timed("remat", phase_remat, _kernels.KERNELS, state, tcfg, ttokens)
@@ -2442,7 +2797,8 @@ def main() -> int:
     del state
     gc.collect()
     torch.cuda.empty_cache()
-    lora_launches, lora_first = timed("lora_train", phase_lora_train, tt, _kernels.KERNELS)
+    lora_launches, lora_trace, lora_ms = timed("lora_train", phase_lora_train, tt,
+                                               _kernels.KERNELS)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2454,13 +2810,17 @@ def main() -> int:
     try:
         timed("dist_world1", phase_dist_world1)
         sharded_launches = timed("sharded_train_world1", phase_sharded_train_world1, tt,
-                                 _kernels.KERNELS, ttokens, first)
+                                 _kernels.KERNELS, ttokens, train_trace[0])
         gc.collect()
         torch.cuda.empty_cache()
+        compiled_train_launches = timed("compiled_train", phase_compiled_train, tt,
+                                        _kernels.KERNELS, ttokens, train_trace, train_ms)
         sharded_lora_launches = timed("sharded_lora_world1", phase_sharded_lora_world1, tt,
-                                      _kernels.KERNELS, lora_first)
+                                      _kernels.KERNELS, lora_trace[0])
         gc.collect()
         torch.cuda.empty_cache()
+        compiled_lora_launches = timed("compiled_lora", phase_compiled_lora, tt,
+                                       _kernels.KERNELS, lora_trace, lora_ms)
         with ThreadPoolExecutor(max_workers=1) as pool:
             cli = pool.submit(timed, "cli", run_cli)
             tp2_launches = timed("tp2_gloo_cuda", phase_tp2_gloo_cuda, tp2)
@@ -2475,6 +2835,7 @@ def main() -> int:
     # leaves its own world-1 group, so they run after the slice's group is
     # gone.
     timed("vision", phase_vision, tt)
+    timed("compiled_vision", phase_compiled_vision, tt)
     timed("cli_single_gpu", phase_cli_single_gpu)
     seconds["serve_finetune_slice"] = sum(seconds[k] for k in (
         "spec_generate", "spec_serve", "lora_serve", "lora_train", "sharded_lora_world1",
@@ -2482,6 +2843,8 @@ def main() -> int:
     seconds["parallelism_slice_single_process"] = sum(seconds[k] for k in (
         "moe_forward", "moe_decode_serve", "moe_train"))
     seconds["compiled_slice"] = seconds["compiled"] + seconds["compiled_moe"]
+    seconds["compiled_train_spec_slice"] = sum(seconds[k] for k in (
+        "compiled_spec", "compiled_train", "compiled_lora", "compiled_vision"))
     for e in entries:
         e["launches"] = step_launches[e["name"]]  # per train step, the main path
         e["launches_by_path"] = {"forward": fwd_launches[e["name"]],
@@ -2491,6 +2854,9 @@ def main() -> int:
                                  "forward_jit_profiled": (fwd_jit_profiled
                                                           if e["name"] == "flash_fwd" else 0),
                                  "train_step": step_launches[e["name"]],
+                                 # one replay of the jitted (donated) steps
+                                 "train_step_jit": compiled_train_launches[e["name"]],
+                                 "lora_train_step_jit": compiled_lora_launches[e["name"]],
                                  "serve": serve_launches[e["name"]],
                                  "sharded_train_step": sharded_launches[e["name"]],
                                  "tp2_rank": tp2_launches["tp2"][0][e["name"]],

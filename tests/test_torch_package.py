@@ -98,6 +98,76 @@ def test_port_modules_expose_the_reference_jit_programs(module, want):
         assert "CUDA-graph capture" in " ".join(fn.__doc__.split()), name
 
 
+# The last compiled programs of the reference: its jitted speculative
+# functions and the factories whose steps it jits with their state donated.
+JITTED = [("speculative", "spec_generate"), ("speculative", "spec_tick"),
+          ("speculative", "_draft_prefill"), ("train", "make_sharded_train_step"),
+          ("lora", "make_sharded_lora_train_step"), ("vision", "make_vision_train_step")]
+
+
+@pytest.mark.parametrize("module,name", JITTED)
+def test_the_reference_jitted_programs_keep_their_names(module, name):
+    """Each name is a ``jax.jit`` program in the reference module (a
+    decorated function, or a factory that returns ``jax.jit(...)``, read
+    from its source) and a function of the port's module whose docstring
+    says it is a CUDA-graph capture."""
+    import ast
+    import importlib
+
+    src = (REPO / "tputopo" / "workloads" / f"{module}.py").read_text()
+    fn = next(n for n in ast.parse(src).body
+              if isinstance(n, ast.FunctionDef) and n.name == name)
+    assert "jax.jit" in ast.get_source_segment(src, fn) or any(
+        "jax.jit" in ast.get_source_segment(src, d) for d in fn.decorator_list)
+    port = getattr(importlib.import_module(f"tputopo_torch.{module}"), name)
+    assert callable(port)
+    assert "CUDA-graph capture" in " ".join(port.__doc__.split())
+
+
+class _Captured(Exception):
+    pass
+
+
+def test_a_step_is_a_graphs_program_on_cuda(monkeypatch):
+    """On the CUDA path (here with every group taken for NCCL's) each
+    factory's step is a donated program of its own ``_graphs.Programs``:
+    its first call goes to the donated capture under the step's name."""
+    import torch.distributed as dist
+
+    from tputopo_torch import _graphs, lora, sharding, train, vision
+
+    def capture(self, name, *args, **kw):
+        raise _Captured(name)
+
+    monkeypatch.setattr(_graphs, "graphed", lambda device: True)
+    monkeypatch.setattr(_graphs, "replays", lambda device, groups=(): True)
+    monkeypatch.setattr(_graphs.Programs, "_capture_donated", capture)
+    cfg = tt.ModelConfig(vocab_size=64, d_model=32, n_layers=1, n_heads=4, n_kv_heads=2,
+                         d_ff=64, max_seq=16, compute_dtype=torch.float32)
+    tokens = torch.zeros((1, 8), dtype=torch.long)
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        plan = sharding.build_mesh({"dp": 1, "tp": 1}, device="cpu")
+        state = train.make_sharded_state(plan, cfg, 0)
+        adapter = lora.make_sharded_lora_state(plan, cfg, 1, rank=2)
+        vcfg = vision.VisionConfig(image_size=8, widths=(4,), d_hidden=8)
+        vparams = vision.init_vision_params(vcfg, 0, device="cpu")
+        vstep, opt = vision.make_vision_train_step(None, vcfg)
+        steps = {"train_step": (train.make_sharded_train_step(plan, cfg), (state, tokens)),
+                 "lora_train_step": (lora.make_sharded_lora_train_step(plan, cfg,
+                                                                       adapter.params),
+                                     (adapter, state.params, tokens)),
+                 "vision_train_step": (vstep, (vparams, opt.init(vparams),
+                                               *vision.synthetic_batch(vcfg, 2, 0,
+                                                                       device="cpu")))}
+        for name, (step, args) in steps.items():
+            assert isinstance(step.programs, _graphs.Programs)
+            with pytest.raises(_Captured, match=name):
+                step(*args)
+    finally:
+        dist.destroy_process_group()
+
+
 def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tt.ModelConfig(n_layers=1, compute_dtype=torch.float32)

@@ -110,11 +110,11 @@ def test_train_step_reduces_loss():
     _, tcfg = _configs()
     state = tr.make_train_state(tcfg, 1, lr=1e-2, device="cpu")
     tokens = torch.from_numpy(_tokens())
-    _, first = tr.train_step(state, tokens, tcfg, lr=1e-2)
+    state, first = tr.train_step(state, tokens, tcfg, lr=1e-2)
     for _ in range(10):
         state, loss = tr.train_step(state, tokens, tcfg, lr=1e-2)
     assert loss.item() < first.item()
-    assert int(state.step) == 10 and int(state.opt_state.count) == 11
+    assert int(state.step) == int(state.opt_state.count) == 11
 
 
 def test_converted_jax_state_matches_make_train_state():

@@ -20,7 +20,10 @@ conv classifier (:mod:`.vision`).  The parallelism strategies run
 beside dp and tp: Mixture-of-Experts layers with experts over ``ep``
 (:class:`MoEConfig`, :mod:`.moe`), the GPipe pipeline over ``pp``
 (:mod:`.pipeline`), and ring and all-to-all context parallelism over
-``sp`` (:mod:`.ring`, :mod:`.ulysses`).  ``python -m tputopo_torch
+``sp`` (:mod:`.ring`, :mod:`.ulysses`).  The reference's ``jax.jit``
+programs keep their names as CUDA-graph captures (:mod:`._graphs`): the
+serving engines', ``generate_jit``, ``forward_jit``, the speculative
+programs and the jitted training steps, their state donated.  ``python -m tputopo_torch
 allreduce|train|decode|serve|train-vision`` is the in-container entry
 point.  It imports neither JAX nor anything of ``tputopo``.
 """

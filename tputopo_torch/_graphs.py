@@ -36,11 +36,24 @@ replaces that graph, so a process holds one graph, and one set of pool
 outputs, per shape and not one per tree it ever passed.
 
 Before its capture a program runs once eagerly on a side stream (cuBLAS
-handles and workspaces, a kernel library's first load), with the tensors
-it mutates and the generator's state put back afterwards.  The capture records; the replay that follows does the call's
-work.  Nothing falls back: on CUDA a capture or replay that fails raises.
-On the CPU, which only a caller who asks for it gets, a program runs its
-body eagerly.
+handles and workspaces, a kernel library's first load, NCCL's
+communicator, which starts at its first collective), with the tensors it
+mutates and the generator's state put back afterwards.  The capture
+records; the replay that follows does the call's work.  A DONATED program
+(the reference's ``donate_argnums``: a training step over its state)
+keeps what its warm-up did instead: that run is the first call's work,
+its outputs the first call's result, and nothing is cloned or restored
+(a training state at Llama-3-8B width is ~31 GB, which the card cannot
+hold twice).  Its capture follows, after the warm-up's freed memory has
+gone back to the device, and executes nothing; later calls replay.
+
+Which programs replay is decided before the call, from the device and the
+process groups a program's collectives run over (:func:`replays`): on
+CUDA, when every group is NCCL's.  Gloo stages CUDA tensors through host
+memory, which a capture cannot record, so under gloo, as on the CPU
+(which only a caller who asks for it gets), a program runs its body
+eagerly.  Nothing falls back: on CUDA a capture or replay that fails
+raises.
 
 A kernel wrapper counts a launch it makes eagerly; while a capture records
 it counts nothing there, and each replay adds the launches its capture
@@ -51,10 +64,12 @@ kernel ran on the card.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import time
 from typing import Callable, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from tputopo_torch import _kernels
 
@@ -74,10 +89,28 @@ def graphed(device) -> bool:
     return kind == "cuda"
 
 
+def replays(device, groups=()) -> bool:
+    """Whether a program of ``device`` whose collectives run over the
+    process ``groups`` replays a captured graph: where :func:`graphed` and
+    every group is NCCL's.  Under gloo its body runs eagerly."""
+    return graphed(device) and all(dist.get_backend(g) == "nccl" for g in groups)
+
+
+def _fields(tree) -> tuple | None:
+    """A dataclass instance's field values (a TrainState, an AdamState),
+    else None."""
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return tuple(getattr(tree, f.name) for f in dataclasses.fields(tree))
+    return None
+
+
 def tensors(tree) -> list[torch.Tensor]:
-    """The tensors of a nested dict / tuple / NamedTuple, in order."""
+    """The tensors of a nested dict / tuple / NamedTuple / dataclass, in
+    order."""
     if torch.is_tensor(tree):
         return [tree]
+    if _fields(tree) is not None:
+        return tensors(_fields(tree))
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in tensors(v)]
     if isinstance(tree, (tuple, list)):
@@ -90,6 +123,8 @@ def signature(tree):
     shape, strides, dtype and device; each other leaf's value."""
     if torch.is_tensor(tree):
         return (tree.data_ptr(), tuple(tree.shape), tree.stride(), tree.dtype, tree.device)
+    if _fields(tree) is not None:
+        return signature(_fields(tree))
     if isinstance(tree, dict):
         return tuple((k, signature(v)) for k, v in tree.items())
     if isinstance(tree, (tuple, list)):
@@ -127,14 +162,17 @@ class Programs:
         self.pool = None
 
     def run(self, name: str, body: Callable, *, device, static: tuple,
-            inputs: tuple = (), bound=None, mutated=None,
-            generator: torch.Generator | None = None):
+            inputs: tuple = (), bound=None, mutated=None, donate: bool = False,
+            groups=(), generator: torch.Generator | None = None):
         """``body(*inputs)`` as the program ``name``: on CUDA, the replay of
         its graph for this key (captured on the first call), which returns
         the captured outputs (static pool tensors, overwritten by the next
-        replay); on the CPU, the body run eagerly.  ``mutated`` is the part
-        of ``bound`` that the body writes."""
-        if not graphed(device):
+        replay); on the CPU or under gloo (:func:`replays` of ``device`` and
+        the process ``groups`` its collectives use), the body run eagerly.
+        ``mutated`` is the part of ``bound`` that the body writes; with
+        ``donate`` the call that captures returns its warm-up's outputs,
+        the warm-up having done its work on ``mutated`` for good."""
+        if not replays(device, groups):
             return body(*inputs)
         device = torch.device(device)
         bound_sig = signature(bound)
@@ -147,6 +185,11 @@ class Programs:
         if entry is not None and entry.bound != bound_sig:
             del self._graphs[key], entry  # free its outputs before the capture
             entry = None
+        if entry is None and donate:
+            entry, first = self._capture_donated(name, body, device, inputs, generator,
+                                                 bound_sig)
+            self._graphs[key] = entry
+            return first
         if entry is None:
             entry = self._capture(name, body, device, inputs, mutated, generator,
                                   bound_sig)
@@ -162,10 +205,25 @@ class Programs:
 
     def _capture(self, name, body, device, inputs, mutated, generator,
                  bound_sig) -> _Entry:
+        """A new graph's entry, after a warm-up whose writes to ``mutated``
+        are undone."""
+        return self._record(name, body, device, inputs, mutated, False, generator,
+                            bound_sig)[0]
+
+    def _capture_donated(self, name, body, device, inputs, generator,
+                         bound_sig) -> tuple[_Entry, object]:
+        """A donated program's new graph: its entry, and the outputs of the
+        warm-up, which did the call's work."""
+        return self._record(name, body, device, inputs, None, True, generator, bound_sig)
+
+    def _record(self, name, body, device, inputs, mutated, donate, generator,
+                bound_sig) -> tuple[_Entry, object]:
         t0 = time.perf_counter()
         with torch.cuda.device(device):
             static_in = tuple(t.to(device, copy=True) for t in inputs)
-            _warm_up(body, static_in, mutated, generator)
+            first = _warm_up(body, static_in, mutated, generator)
+            if donate:  # the warm-up's activations go back before the pool grows
+                torch.cuda.empty_cache()
             if self.pool is None:
                 self.pool = torch.cuda.graph_pool_handle()
             graph = torch.cuda.CUDAGraph()
@@ -177,24 +235,25 @@ class Programs:
         launches = {k: k.captured - n for k, n in before.items() if k.captured != n}
         self.captures[name] += 1
         self.capture_seconds += time.perf_counter() - t0
-        return _Entry(bound_sig, graph, static_in, outputs, launches, generator)
+        return _Entry(bound_sig, graph, static_in, outputs, launches, generator), first
 
 
-def _warm_up(body, inputs, mutated, generator) -> None:
+def _warm_up(body, inputs, mutated, generator):
     """One eager run of ``body`` on a side stream, as a capture needs
     before it records; the tensors of ``mutated`` and the generator's
-    state are put back as they were."""
+    state are put back as they were.  Returns what the body returned."""
     saved = [t.clone() for t in tensors(mutated)]
     gen_state = None if generator is None else generator.get_state()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        body(*inputs)
+        out = body(*inputs)
         for t, s in zip(tensors(mutated), saved):
             t.copy_(s)
     side.synchronize()
     if gen_state is not None:
         generator.set_state(gen_state)
+    return out
 
 
 # The programs of the ``*_jit`` calls that name no owner: one process-wide

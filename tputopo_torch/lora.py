@@ -44,12 +44,13 @@ import math
 
 import torch
 
+from tputopo_torch import _graphs
 from tputopo_torch import sharding as shardlib
-from tputopo_torch.model import ModelConfig, resolve_device
+from tputopo_torch.model import ModelConfig, check_token_ids, resolve_device
 from tputopo_torch.quant import is_quantized
 from tputopo_torch.train import (TrainState, _leaf_names, _leaves,
-                                 accumulated_loss_and_grads, loss_fn, make_optimizer,
-                                 sharded_loss_and_grads)
+                                 accumulated_loss_and_grads, donated_step, loss_fn,
+                                 make_optimizer, sharded_loss_and_grads)
 
 #: Column-parallel projections LoRA may target ([.., d_in, d_out] with the
 #: output axis tp-sharded).  Row-parallel ones (wo, w_down) would need an
@@ -171,16 +172,16 @@ def _lora_loss(base_params: dict, adapter: dict, tokens: torch.Tensor,
 def lora_train_step(state: TrainState, base_params: dict, tokens: torch.Tensor,
                     config: ModelConfig, lr: float = 3e-4,
                     accum_steps: int = 1) -> tuple[TrainState, torch.Tensor]:
-    """One optimizer step of the adapter on one device, in place, as
-    :func:`~.train.train_step` is for the model: grads flow to the adapter
-    tree ``state.params`` only; ``base_params`` (raw or quantized) is read,
-    never written."""
+    """One optimizer step of the adapter on one device, in place (the step
+    counter included), as :func:`~.train.train_step` is for the model:
+    grads flow to the adapter tree ``state.params`` only; ``base_params``
+    (raw or quantized) is read, never written."""
     loss, grads = accumulated_loss_and_grads(
         state.params, tokens, config, accum_steps,
         functools.partial(_lora_loss, base_params))
     make_optimizer(lr).update_(grads, state.opt_state, state.params)
-    return TrainState(params=state.params, opt_state=state.opt_state,
-                      step=state.step + 1), loss
+    state.step.add_(1)
+    return state, loss
 
 
 def make_sharded_lora_train_step(plan: shardlib.MeshPlan, config: ModelConfig,
@@ -195,22 +196,38 @@ def make_sharded_lora_train_step(plan: shardlib.MeshPlan, config: ModelConfig,
     mean over dp, then AdamW on the adapter shards in place; the global
     loss is returned.  ``lora`` gives the adapter's structure.  When the
     plan has pp > 1 the forward runs the GPipe pipeline with ``n_micro``
-    microbatches (default pp), as the model's sharded step does."""
+    microbatches (default pp), as the model's sharded step does.
+
+    The reference's jitted step with the adapter state donated: a
+    CUDA-graph capture (:func:`~.train.donated_step`), not ``torch.jit``,
+    one per state and base storage and token shape, owned by
+    ``step.programs``; the base is bound, read in place, never written."""
     specs = _leaves(lora_shardings(plan, lora, config))
     tp_partial = tuple(n for n, spec in zip(_leaf_names(lora), specs)
                        if "tp" not in spec)
     opt = make_optimizer(lr)
+    programs = _graphs.Programs()
+    static = (config, lr, n_micro, accum_steps, tuple(plan.axes.items()))
 
-    def step(state: TrainState, base_params: dict,
-             tokens: torch.Tensor) -> tuple[TrainState, torch.Tensor]:
+    def body(state: TrainState, base_params: dict, tokens: torch.Tensor) -> torch.Tensor:
         loss, grads = sharded_loss_and_grads(
             plan, state.params, tokens, config, accum_steps,
             loss=functools.partial(_lora_loss, base_params, n_micro=n_micro),
             tp_partial=tp_partial)
         opt.update_(grads, state.opt_state, state.params)
-        return TrainState(params=state.params, opt_state=state.opt_state,
-                          step=state.step + 1), loss
+        state.step.add_(1)
+        return loss
 
+    def step(state: TrainState, base_params: dict,
+             tokens: torch.Tensor) -> tuple[TrainState, torch.Tensor]:
+        tokens = torch.as_tensor(tokens)
+        check_token_ids(tokens, config)
+        return state, donated_step(
+            programs, "lora_train_step", lambda t: body(state, base_params, t), state,
+            inputs=(tokens,), plan=plan, device=plan.device, static=static,
+            frozen=base_params)
+
+    step.programs = programs
     return step
 
 

@@ -412,12 +412,16 @@ def _dots_policy(ctx, op, *args, **kwargs):
 
 
 def apply_remat(block_fn, remat: str):
-    """Wrap one layer's function per the ``remat`` policy."""
+    """Wrap one layer's function per the ``remat`` policy.  A block draws
+    no random numbers, so the checkpoint keeps no RNG state: reading the
+    CUDA generator's state is refused while a CUDA graph captures, and
+    the training steps are captured (:mod:`._graphs`)."""
     if remat == "block":
-        return functools.partial(checkpoint, block_fn, use_reentrant=False)
+        return functools.partial(checkpoint, block_fn, use_reentrant=False,
+                                 preserve_rng_state=False)
     if remat == "dots":
         return functools.partial(
-            checkpoint, block_fn, use_reentrant=False,
+            checkpoint, block_fn, use_reentrant=False, preserve_rng_state=False,
             context_fn=functools.partial(create_selective_checkpoint_contexts,
                                          _dots_policy))
     if remat == "none":

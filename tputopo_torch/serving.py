@@ -129,27 +129,27 @@ def _slot_cache(cache: KVCache, slot: int) -> KVCache:
     return KVCache(*(None if b is None else b[:, slot:slot + 1] for b in cache))
 
 
-def _slot_prefill(params: dict, state: DecodeState, config: ModelConfig,
+def _slot_prefill(params: dict, whole: KVCache, config: ModelConfig,
                   slot: torch.Tensor, tokens: torch.Tensor,
                   start: torch.Tensor) -> torch.Tensor:
     """``tokens`` [T] at positions start..start+T-1 through the stack
-    against the rows of ``slot`` (a [1] device index) of the cache, which
-    are gathered and written back: the reference's ``_block_step`` on
-    ``_slot_cache``, merged back by ``_merge_slot_cache`` -> the last
-    layer's output [1, T, D].  ``start`` ([1]) places the window as
-    ``dynamic_slice`` does (:func:`_window_start`) for the RoPE rows and
-    the cache write; the causal mask compares with the raw start, as the
-    reference's does."""
-    S, T = state.tokens.shape[1], tokens.shape[0]
+    against the rows of ``slot`` (a [1] device index) of the cache
+    ``whole``, which are gathered and written back: the reference's
+    ``_block_step`` on ``_slot_cache``, merged back by ``_merge_slot_cache``
+    -> the last layer's output [1, T, D].  ``start`` ([1]) places the
+    window as ``dynamic_slice`` does (:func:`_window_start`) for the RoPE
+    rows and the cache write; the causal mask compares with the raw start,
+    as the reference's does."""
+    S, T = whole.k.shape[2], tokens.shape[0]
     cache = KVCache(*(None if b is None else b.index_select(1, slot)
-                      for b in state.cache))
+                      for b in whole))
     cos, sin = _rope_tables(config, S, tokens.device)
     rows = _window_start(start, S, T)[:, None] + torch.arange(T, device=tokens.device)
     x = embed_tokens(params, tokens[None, :], config)
     x = _ragged_layers(params, config, x, cos[rows], sin[rows], start, cache)
-    for whole, b in zip(state.cache, cache):
+    for buf, b in zip(whole, cache):
         if b is not None:
-            whole.index_copy_(1, slot, b)
+            buf.index_copy_(1, slot, b)
     return x
 
 
@@ -190,7 +190,7 @@ def _admission(params: dict, state: DecodeState, config: ModelConfig,
     (an index into the chunk placed as ``dynamic_index_in_dim`` places
     it), and the slot's activation."""
     slot, start = a[_SLOT:_SLOT + 1], a[_START:_START + 1]
-    x = _slot_prefill(params, state, config, slot, chunk, start)
+    x = _slot_prefill(params, state.cache, config, slot, chunk, start)
     if prompt is None:
         return
     plen = a[_PLEN:_PLEN + 1]

@@ -75,6 +75,11 @@ class MeshPlan:
         """The process group of this rank's peers along ``axis``."""
         return self.mesh.get_group(axis)
 
+    def groups(self) -> list:
+        """The process groups of every axis: what decides whether a step's
+        compiled program replays (:func:`~._graphs.replays`)."""
+        return self.mesh.get_all_groups()
+
     def spec(self, *names: str | None) -> tuple:
         """Axis names per dimension, axes of size 1 dropped to None (the
         reference's ``PartitionSpec``, read as a tuple)."""

@@ -18,12 +18,17 @@ two widths.  Parity is exact at f32 (pinned by the tests).
 - The draft is the target's first ``draft_layers`` layers with the embed,
   final norm and head shared: :func:`draft_slice` slices the same stacked
   tensors (views, no copy), raw, int8, int4 and LoRA-wrapped leaves alike.
-- :func:`spec_generate` (one sequence) runs the reference's
-  ``lax.while_loop`` as a Python loop over device tensors.  It reads back
-  the committed length once per verify step, for the next step's integer
-  positions; nothing else in a step waits for the device.  Junk K/V past
-  the committed length is overwritten before any query attends it, so
-  rejected drafts need no rollback.
+- :func:`spec_generate` (one sequence) is two compiled programs: the
+  prefill of both caches, and ONE verify step whose positions (the
+  committed ``length``, the draft's ``dlen``) are device scalars, its
+  windows gathers and masked writes through the serving engine's ragged
+  block at B = 1.  The reference's ``lax.while_loop`` becomes rounds: the
+  step is replayed ceil((total - length) / (gamma + 1)) times, a lower
+  bound on the steps still needed (each commits 1..gamma+1 tokens), and
+  then ``length`` is read back, once a round, until it reaches the total.
+  No step runs past the end, so the tokens and ``target_steps`` are the
+  reference's.  Junk K/V past the committed length is overwritten before
+  any query attends it, so rejected drafts need no rollback.
 - :class:`SpecServingEngine` is speculative continuous batching over the
   serving engine's slots: every slot drafts and accepts at its own
   position through one ragged verify block (:func:`~.serving.ragged_block`
@@ -31,9 +36,15 @@ two widths.  Parity is exact at f32 (pinned by the tests).
   :func:`spec_tick` reads nothing back; the engine reads the tick's
   accepted count, as the reference's ``int(accepted)`` does.
 
+The reference jits ``spec_generate``, ``spec_tick`` and ``_draft_prefill``;
+here each is a CUDA-graph capture (:mod:`._graphs`) under the same name,
+replayed on CUDA and run eagerly on the CPU.  ``*_eager`` name their
+bodies run op by op on any device (the engine's eager-driven twin, the
+card's comparisons).
+
 ``lax.dynamic_slice`` clamps its start into the array where a Python slice
-would come back short; the windows here replicate the clamp
-(:func:`_window`, and the gathers of :func:`spec_tick`).  The port's
+would come back short; the windows here replicate the clamp (the gathers
+of :func:`spec_tick` and of the verify step).  The port's
 :class:`~.serving.DecodeState` has no step counter, so :func:`spec_tick`
 has no ``step + 1``.
 """
@@ -41,12 +52,15 @@ has no ``step + 1``.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
+from tputopo_torch import _graphs
 from tputopo_torch.decode import KVCache, _block_hidden, _block_step
-from tputopo_torch.model import ModelConfig, _check_supported, _rope_tables, lm_head
-from tputopo_torch.serving import (DecodeState, ServingEngine, _slot_cache,
+from tputopo_torch.model import (ModelConfig, _check_supported, _rope_tables,
+                                 check_token_ids, lm_head)
+from tputopo_torch.serving import (DecodeState, ServingEngine, _host, _slot_prefill,
                                    ragged_block, ragged_hidden)
 
 
@@ -88,26 +102,99 @@ def draft_slice(params: dict, config: ModelConfig,
     return draft_params, dataclasses.replace(config, n_layers=draft_layers)
 
 
-def _window(n: int, start: int, size: int) -> int:
-    """``lax.dynamic_slice``'s start for a window of ``size`` in an axis of
-    ``n``: clamped into [0, n - size], so the window stays whole."""
-    return min(max(start, 0), n - size)
+class _SpecLoop(NamedTuple):
+    """:func:`spec_generate`'s device state between verify steps: the
+    reference's ``while_loop`` carry less ``target_steps``, which the host
+    counts (one per step it replays)."""
+
+    tokens: torch.Tensor    # [1, max_len] committed tokens, junk past length
+    tcache: KVCache         # the target's, [L, 1, max_len, KV, H]
+    dcache: KVCache         # the draft's
+    length: torch.Tensor    # [1] int64: tokens committed
+    dlen: torch.Tensor      # [1] int64: tokens the draft has seen
+    accepted: torch.Tensor  # [] int64: tokens committed from the draft
 
 
-@torch.no_grad()
-def spec_generate(params: dict, prompt: torch.Tensor, config: ModelConfig, *,
-                  max_new: int, draft_layers: int, gamma: int = 4,
-                  max_len: int | None = None) -> tuple[torch.Tensor, dict]:
-    """Greedy speculative decode on the device that holds ``params``:
-    prompt [1, P] -> ([1, P + max_new] token ids, stats).  Token for token
-    the greedy output of :func:`~.decode.generate`; ``stats`` holds
-    ``target_steps`` (target forwards paid, the prefill included),
-    ``drafted_accepted`` (tokens committed straight from the draft) and
-    ``max_new``."""
+def _spec_prefill(params: dict, draft_params: dict, config: ModelConfig,
+                  draft_config: ModelConfig, prompt: torch.Tensor,
+                  max_len: int) -> _SpecLoop:
+    """Prefill both caches on ``prompt`` [1, P]; the target's last-position
+    logits give the first committed token -> the loop's first state."""
+    device = prompt.device
+    P = prompt.shape[1]
+    cos, sin = _rope_tables(config, max_len, device)
+    tokens = torch.zeros((1, max_len), dtype=torch.long, device=device)
+    tokens[:, :P] = prompt
+    tcache = KVCache.create(config, 1, max_len, device=device)
+    dcache = KVCache.create(draft_config, 1, max_len, device=device)
+    tlogits = _block_step(params, config, prompt, 0, tcache, cos, sin)
+    _block_hidden(draft_params, draft_config, prompt, 0, dcache, cos, sin)
+    tokens[:, P] = torch.argmax(tlogits[:, -1], dim=-1)
+
+    def scalar(v: int) -> torch.Tensor:
+        return torch.full((1,), v, dtype=torch.long, device=device)
+
+    return _SpecLoop(tokens, tcache, dcache, scalar(P + 1), scalar(P),
+                     torch.zeros((), dtype=torch.long, device=device))
+
+
+def _spec_verify(params: dict, draft_params: dict, config: ModelConfig,
+                 draft_config: ModelConfig, loop: _SpecLoop, total: int,
+                 gamma: int) -> None:
+    """One verify step of :func:`spec_generate`, in place on ``loop``: the
+    reference's ``while_loop`` body with every position a device scalar,
+    through the serving engine's ragged block at B = 1.  Nothing is read
+    back.  The buffers hold ``total + gamma + 1`` rows, so no window
+    clamps; the gather clamps as ``dynamic_slice`` would all the same."""
+    tokens, tcache, dcache, length, dlen, accepted = loop
+    max_len = tokens.shape[1]
+    G1 = gamma + 1
+    steps = torch.arange(G1, device=tokens.device)
+
+    # 1. Draft catch-up: feed the draft every committed token it has not
+    # seen as one fixed-width block; entries past the real gap are junk
+    # whose K/V rows are overwritten before any query attends them.  The
+    # first draft token is free: the block holds the last committed
+    # token's position, and only that row goes to the head.
+    gap = tokens.gather(1, dlen.clamp(max=max_len - G1)[:, None] + steps)
+    x = ragged_hidden(draft_params, draft_config, gap, dlen, dcache)
+    last_row = (length - 1 - dlen)[:, None, None].expand(1, 1, x.shape[-1])
+    drafts = [torch.argmax(lm_head(draft_params, x.gather(1, last_row),
+                                   draft_config)[:, 0], dim=-1)]
+    dlen.copy_(length)  # the draft has now seen tokens[0:length]
+    # 2. The remaining gamma-1 draft tokens, one by one.
+    for i in range(gamma - 1):
+        lg = ragged_block(draft_params, draft_config, drafts[-1][:, None], length + i,
+                          dcache)
+        drafts.append(torch.argmax(lg[:, 0], dim=-1))
+    drafts = torch.stack(drafts, dim=1)  # [1, gamma]
+    # 3. Verify: ONE target forward over [last, draft_1..draft_gamma] at
+    # positions length-1.. — the amortized weight stream.
+    block = torch.cat([tokens.gather(1, (length - 1)[:, None]), drafts], dim=1)
+    targets = torch.argmax(ragged_block(params, config, block, length - 1, tcache),
+                           dim=-1)
+    row, n_accept = _acceptance_row(drafts, targets)
+    # 4. Commit the accepted drafts and the target's own next token,
+    # capped by the budget (never past total), as a masked full-row write.
+    commit = torch.minimum(n_accept + 1, total - length)  # [1]
+    off = torch.arange(max_len, device=tokens.device)[None, :] - length[:, None]
+    use = (off >= 0) & (off < commit[:, None])
+    tokens.copy_(torch.where(use, row.gather(1, off.clamp(0, gamma)), tokens))
+    accepted.add_(torch.minimum(n_accept, commit)[0])
+    length.add_(commit)
+
+
+def _spec_generate(params: dict, prompt, config: ModelConfig, max_new: int,
+                   draft_layers: int, gamma: int, max_len: int | None,
+                   programs: _graphs.Programs | None,
+                   jit: bool) -> tuple[torch.Tensor, dict]:
+    """:func:`spec_generate`'s host loop: the prefill, then rounds of verify
+    steps with one readback of the committed length a round; the two
+    programs replay with ``jit``, else their bodies run op by op."""
     c = config
     _check_supported(c)
     device = params["final_norm"].device
-    prompt = torch.as_tensor(prompt, device=device)
+    prompt = torch.as_tensor(prompt)
     B, P = prompt.shape
     if B != 1:
         raise ValueError("spec_generate is single-sequence (B=1); the "
@@ -121,65 +208,69 @@ def spec_generate(params: dict, prompt: torch.Tensor, config: ModelConfig, *,
     # length; the buffers get that margin.
     max_len = max(max_len or 0, total + G1)
     draft_params, draft_cfg = draft_slice(params, c, draft_layers)
-    cos, sin = _rope_tables(c, max_len, device)
-    tokens = torch.zeros((1, max_len), dtype=torch.long, device=device)
-    tokens[:, :P] = prompt
+    static = (c, draft_layers, gamma, max_new, max_len)
 
-    # Prefill both caches on the prompt; the target's last-position logits
-    # give the first committed token.
-    tcache = KVCache.create(c, 1, max_len, device=device)
-    dcache = KVCache.create(draft_cfg, 1, max_len, device=device)
-    tlogits = _block_step(params, c, prompt, 0, tcache, cos, sin)
-    _block_hidden(draft_params, draft_cfg, prompt, 0, dcache, cos, sin)
-    tokens[0, P] = torch.argmax(tlogits[0, -1])
+    def run(name, body, inputs=(), **kw):
+        if not jit:
+            return body(*(t.to(device) for t in inputs))
+        return _graphs.run(programs, name, body, device=device, static=static,
+                           inputs=inputs, **kw)
 
-    steps = torch.arange(G1, device=device)
-    accepted = torch.zeros((), dtype=torch.long, device=device)
-    length, dlen, target_steps = P + 1, P, 1
+    if jit:
+        check_token_ids(prompt, c)
+    loop = run("spec_prefill",
+               lambda p: _spec_prefill(params, draft_params, c, draft_cfg, p, max_len),
+               inputs=(prompt,), bound=params)
+    length, target_steps = P + 1, 1
     while length < total:
-        # 1. Draft catch-up: feed the draft every committed token it has
-        # not seen as one fixed-width block; entries past the real gap are
-        # junk whose K/V rows are overwritten before any query attends
-        # them.  The first draft token is free: the block holds the last
-        # committed token's position, and only that row goes to the head.
-        s = _window(max_len, dlen, G1)
-        x = _block_hidden(draft_params, draft_cfg, tokens[:, s:s + G1], dlen,
-                          dcache, cos, sin, check_ids=False)
-        drafts = [torch.argmax(lm_head(draft_params, x[:, length - 1 - dlen],
-                                       draft_cfg), dim=-1)]
-        dlen = length  # the draft has now seen tokens[0:length]
-        # 2. The remaining gamma-1 draft tokens, one by one.
-        for i in range(gamma - 1):
-            lg = _block_step(draft_params, draft_cfg, drafts[-1][:, None], length + i,
-                             dcache, cos, sin, check_ids=False)
-            drafts.append(torch.argmax(lg[:, -1], dim=-1))
-        drafts = torch.stack(drafts, dim=1)  # [1, gamma]
-        # 3. Verify: ONE target forward over [last, draft_1..draft_gamma] at
-        # positions length-1.. — the amortized weight stream.
-        block = torch.cat([tokens[:, length - 1:length], drafts], dim=1)
-        vlogits = _block_step(params, c, block, length - 1, tcache, cos, sin,
-                              check_ids=False)
-        row, n_accept = _acceptance_row(drafts, torch.argmax(vlogits, dim=-1))
-        # 4. Commit the accepted drafts and the target's own next token,
-        # capped by the budget (never past total).
-        commit = torch.clamp(n_accept + 1, max=total - length)  # [1]
-        w = _window(max_len, length, G1)
-        tokens[:, w:w + G1] = torch.where(steps[None, :] < commit[:, None], row,
-                                          tokens[:, w:w + G1])
-        accepted += torch.minimum(n_accept, commit)[0]
-        target_steps += 1
-        length += int(commit[0])  # the step's one readback
-    stats = {"target_steps": target_steps, "drafted_accepted": int(accepted),
+        for _ in range(-(-(total - length) // G1)):
+            run("spec_step", lambda: _spec_verify(params, draft_params, c, draft_cfg,
+                                                  loop, total, gamma),
+                bound=(params, loop), mutated=loop)
+            target_steps += 1
+        length = int(loop.length[0])  # the round's one readback
+    stats = {"target_steps": target_steps, "drafted_accepted": int(loop.accepted),
              "max_new": max_new}
-    return tokens[:, :total], stats
+    return loop.tokens[:, :total].clone(), stats
+
+
+@torch.no_grad()
+def spec_generate(params: dict, prompt: torch.Tensor, config: ModelConfig, *,
+                  max_new: int, draft_layers: int, gamma: int = 4,
+                  max_len: int | None = None,
+                  programs: _graphs.Programs | None = None) -> tuple[torch.Tensor, dict]:
+    """Greedy speculative decode on the device that holds ``params``:
+    prompt [1, P] -> ([1, P + max_new] token ids, stats).  Token for token
+    the greedy output of :func:`~.decode.generate`; ``stats`` holds
+    ``target_steps`` (target forwards paid, the prefill included),
+    ``drafted_accepted`` (tokens committed straight from the draft) and
+    ``max_new``.
+
+    The reference's jitted ``spec_generate`` as two CUDA-graph captures
+    (:mod:`._graphs`), not ``torch.jit``: the prefill, one per prompt
+    width and static arguments, and the device-scalar verify step, replayed
+    in rounds with one readback each.  The prompt is checked on its way
+    into the graph's static buffer; the tokens returned are a fresh copy.
+    On the CPU the same bodies run eagerly."""
+    return _spec_generate(params, prompt, config, max_new, draft_layers, gamma,
+                          max_len, programs, jit=True)
+
+
+@torch.no_grad()
+def spec_generate_eager(params: dict, prompt: torch.Tensor, config: ModelConfig, *,
+                        max_new: int, draft_layers: int, gamma: int = 4,
+                        max_len: int | None = None) -> tuple[torch.Tensor, dict]:
+    """:func:`spec_generate` with its bodies run op by op, on any device."""
+    return _spec_generate(params, prompt, config, max_new, draft_layers, gamma,
+                          max_len, None, jit=False)
 
 
 # ---- speculative continuous batching ----------------------------------------
 
 @torch.no_grad()
-def spec_tick(params: dict, draft_params: dict, state: DecodeState,
-              dcache: KVCache, dlen: torch.Tensor, config: ModelConfig,
-              draft_config: ModelConfig, eos_id: int, gamma: int) -> torch.Tensor:
+def spec_tick_eager(params: dict, draft_params: dict, state: DecodeState,
+                    dcache: KVCache, dlen: torch.Tensor, config: ModelConfig,
+                    draft_config: ModelConfig, eos_id: int, gamma: int) -> torch.Tensor:
     """One speculative tick for every active slot, in place: draft catch-up
     -> gamma per-slot draft tokens -> ONE ragged target verify block ->
     per-slot acceptance and EOS/budget-capped commits.  Each slot commits
@@ -256,13 +347,77 @@ def spec_tick(params: dict, draft_params: dict, state: DecodeState,
 
 
 @torch.no_grad()
+def spec_tick(params: dict, draft_params: dict, state: DecodeState,
+              dcache: KVCache, dlen: torch.Tensor, config: ModelConfig,
+              draft_config: ModelConfig, eos_id: int, gamma: int, *,
+              programs: _graphs.Programs | None = None) -> torch.Tensor:
+    """:func:`spec_tick_eager` as one compiled program per (config, draft
+    config, gamma, eos_id) on these trees, the reference's jitted
+    ``spec_tick``: a CUDA-graph capture (:mod:`._graphs`), not
+    ``torch.jit``.  Returns the accepted count as the graph's output, a
+    device scalar the next replay overwrites.  On the CPU it runs the
+    tick."""
+    return _graphs.run(programs, "spec_tick",
+                       lambda: spec_tick_eager(params, draft_params, state, dcache, dlen,
+                                               config, draft_config, eos_id, gamma),
+                       device=state.tokens.device,
+                       static=(config, draft_config, gamma, eos_id),
+                       bound=(params, draft_params, state, dcache, dlen),
+                       mutated=(state, dcache, dlen))
+
+
+def _draft_scalars(dcache: KVCache, slot: int, prompt_len: int) -> torch.Tensor:
+    """The draft prefill's scalars (slot, start 0, prompt length) as a host
+    int64 vector; the slot must lie in range (a device gather would
+    fault)."""
+    if not 0 <= slot < dcache.k.shape[1]:
+        raise ValueError(f"slot {slot} outside [0, {dcache.k.shape[1]})")
+    return torch.tensor([slot, 0, prompt_len], dtype=torch.long)
+
+
+def _draft_prefill_body(draft_params: dict, config: ModelConfig, dcache: KVCache,
+                        dlen: torch.Tensor | None, prompt: torch.Tensor,
+                        a: torch.Tensor) -> None:
+    """The slot ``a[0]``'s rows of the draft cache prefilled on ``prompt``
+    at start ``a[1]``, and ``dlen[slot]`` set to ``a[2]``, in place."""
+    slot = a[0:1]
+    _slot_prefill(draft_params, dcache, config, slot, prompt, a[1:2])
+    if dlen is not None:
+        dlen.index_copy_(0, slot, a[2:3])
+
+
+@torch.no_grad()
+def draft_prefill_eager(draft_params: dict, config: ModelConfig, dcache: KVCache,
+                        slot: int, prompt: torch.Tensor, *,
+                        dlen: torch.Tensor | None = None,
+                        prompt_len: int = 0) -> KVCache:
+    """:func:`_draft_prefill`'s body run op by op, on any device."""
+    device = dcache.k.device
+    _draft_prefill_body(draft_params, config, dcache, dlen,
+                        torch.as_tensor(prompt).to(device),
+                        _draft_scalars(dcache, slot, prompt_len).to(device))
+    return dcache
+
+
+@torch.no_grad()
 def _draft_prefill(draft_params: dict, config: ModelConfig, dcache: KVCache,
-                   slot: int, prompt: torch.Tensor) -> KVCache:
+                   slot: int, prompt: torch.Tensor, *,
+                   dlen: torch.Tensor | None = None, prompt_len: int = 0,
+                   programs: _graphs.Programs | None = None) -> KVCache:
     """Prefill one slot of the draft cache on admission, in place (the
-    draft twin of the engine's admit: the cache only, no tokens)."""
-    cos, sin = _rope_tables(config, dcache.k.shape[2], prompt.device)
-    _block_hidden(draft_params, config, prompt[None, :], 0,
-                  _slot_cache(dcache, slot), cos, sin)
+    draft twin of the engine's admit: the cache only, no tokens), and with
+    ``dlen`` set the slot's draft length to ``prompt_len``.  The
+    reference's jitted ``_draft_prefill`` as one CUDA-graph capture
+    (:mod:`._graphs`) per prompt width, not ``torch.jit``: the slot and the
+    length reach the graph as device scalars, so every slot replays it.
+    On the CPU it runs the body."""
+    prompt = torch.as_tensor(prompt)
+    check_token_ids(prompt, config)
+    _graphs.run(programs, "_draft_prefill",
+                lambda p, a: _draft_prefill_body(draft_params, config, dcache, dlen, p, a),
+                device=dcache.k.device, static=(config,),
+                inputs=(prompt, _draft_scalars(dcache, slot, prompt_len)),
+                bound=(draft_params, dcache, dlen), mutated=(dcache, dlen))
     return dcache
 
 
@@ -275,12 +430,15 @@ class SpecServingEngine(ServingEngine):
     A subclass that replaces two hooks: ``_post_admit`` (prefill the draft
     cache beside every admission) and ``_decode_tick`` (the speculative
     tick instead of plain decode steps); admission, harvest, queueing,
-    streaming and the run loop are the parent's.  ``metrics["decode_steps"]``
-    counts target streams, ``metrics["drafted_accepted"]`` the tokens
-    committed from the draft.  Greedy only (the lossless guarantee;
-    sampled speculation needs rejection sampling) and whole-bucket
-    admission only (no chunked prefill, no prefix caching: mirroring them
-    into the draft cache is future work).
+    streaming and the run loop are the parent's.  Both hooks run compiled
+    programs (:func:`_draft_prefill`, :func:`spec_tick`) through
+    :meth:`_program`, on the engine's :attr:`programs`, as the parent's
+    admissions do.  ``metrics["decode_steps"]`` counts target streams,
+    ``metrics["drafted_accepted"]`` the tokens committed from the draft.
+    Greedy only (the lossless guarantee; sampled speculation needs
+    rejection sampling) and whole-bucket admission only (no chunked
+    prefill, no prefix caching: mirroring them into the draft cache is
+    future work).
     """
 
     def __init__(self, params: dict, config: ModelConfig, *, slots: int,
@@ -308,14 +466,26 @@ class SpecServingEngine(ServingEngine):
                              "is future work)")
         return super().submit(prompt, max_new)
 
+    def _program(self, name: str, *args, **kw):
+        """The device program ``name``: this module's (``spec_tick``,
+        ``_draft_prefill``) or the parent's, on :attr:`programs`."""
+        if name not in SPEC_PROGRAMS:
+            return super()._program(name, *args, **kw)
+        return SPEC_PROGRAMS[name](*args, programs=self.programs, **kw)
+
     def _post_admit(self, slot: int, padded, prompt_len: int) -> None:
-        _draft_prefill(self.draft_params, self.draft_cfg, self._dcache, slot,
-                       self._dev(padded))
-        self._dlen[slot] = prompt_len
+        self._program("_draft_prefill", self.draft_params, self.draft_cfg, self._dcache,
+                      slot, _host(padded), dlen=self._dlen, prompt_len=prompt_len)
 
     def _decode_tick(self) -> None:
-        accepted = spec_tick(self.params, self.draft_params, self.state, self._dcache,
-                             self._dlen, self.config, self.draft_cfg, self.eos_id,
-                             self.gamma)
+        accepted = self._program("spec_tick", self.params, self.draft_params, self.state,
+                                 self._dcache, self._dlen, self.config, self.draft_cfg,
+                                 self.eos_id, self.gamma)
         self.metrics["decode_steps"] += 1  # target streams paid
         self.metrics["drafted_accepted"] += int(accepted)
+
+
+# The speculative engine's device programs by name, and their bodies run op
+# by op (what an eager-driven twin of the engine calls instead).
+SPEC_PROGRAMS = {"spec_tick": spec_tick, "_draft_prefill": _draft_prefill}
+EAGER_PROGRAMS = {"spec_tick": spec_tick_eager, "_draft_prefill": draft_prefill_eager}

@@ -26,6 +26,15 @@ The other axes keep that shape.  Under ``ep`` (MoE experts) and ``pp``
 every rank, as under ``tp``.  Under ``sp`` each rank holds a chunk of the
 sequence and its loss is its chunk's share of the global next-token mean;
 the step sums loss and grads over ``sp`` before the mean over ``dp``.
+
+The step :func:`make_sharded_train_step` returns is the reference's jitted
+step, whose state is donated: one compiled program (:mod:`._graphs`), a
+CUDA-graph capture of the local loss and grads, the collectives and the
+AdamW update, replayed on every call after the first, whose warm-up did
+that call's work on the state in place.  It replays on CUDA when the
+plan's groups are NCCL's; under gloo and on the CPU it runs eagerly.  The
+step counter advances in place, so the bound state keeps its storage and
+one capture serves every call.
 """
 
 from __future__ import annotations
@@ -37,9 +46,10 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from tputopo_torch import _graphs
 from tputopo_torch import sharding as shardlib
 from tputopo_torch.model import (ModelConfig, _check_supported, all_reduce_f32,
-                                 init_params, lm_head, reduce_from_tp,
+                                 check_token_ids, init_params, lm_head, reduce_from_tp,
                                  resolve_device, tp_context, trunk)
 
 
@@ -216,13 +226,13 @@ def accumulated_loss_and_grads(params: dict, tokens: torch.Tensor, config: Model
 
 def train_step(state: TrainState, tokens: torch.Tensor, config: ModelConfig,
                lr: float = 3e-4, accum_steps: int = 1) -> tuple[TrainState, torch.Tensor]:
-    """One optimizer step, in place; returns (state, loss).  ``accum_steps
-    > 1`` accumulates the grads of that many microbatches and applies ONE
-    update (:func:`accumulated_loss_and_grads`)."""
+    """One optimizer step, in place, the step counter included; returns
+    (state, loss).  ``accum_steps > 1`` accumulates the grads of that many
+    microbatches and applies ONE update (:func:`accumulated_loss_and_grads`)."""
     loss, grads = accumulated_loss_and_grads(state.params, tokens, config, accum_steps)
     make_optimizer(lr).update_(grads, state.opt_state, state.params)
-    return TrainState(params=state.params, opt_state=state.opt_state,
-                      step=state.step + 1), loss
+    state.step.add_(1)
+    return state, loss
 
 
 def vocab_parallel_nll(logits: torch.Tensor, targets: torch.Tensor,
@@ -338,24 +348,56 @@ def _leaf_names(tree: dict, prefix: str = "") -> list[str]:
         else [prefix + k])]
 
 
+def donated_step(programs: _graphs.Programs, name: str, body, state, *,
+                 inputs: tuple, plan: shardlib.MeshPlan | None, device, static: tuple,
+                 frozen=None) -> torch.Tensor:
+    """``body(*inputs)``, a training step that updates ``state`` in place
+    and returns its loss, as the donated program ``name`` of ``programs``
+    (the reference's ``donate_argnums``, :mod:`._graphs`): keyed on
+    ``static``, the input shapes and the storage of ``state`` and of the
+    ``frozen`` tree it reads (a LoRA base).  It replays on CUDA when every
+    group of ``plan`` is NCCL's, else runs eagerly.  Returns the loss as a
+    fresh tensor."""
+    groups = () if plan is None else plan.groups()
+    loss = _graphs.run(programs, name, body, device=device, static=static, inputs=inputs,
+                       bound=(state, frozen), mutated=state, donate=True, groups=groups)
+    return loss.clone() if _graphs.replays(device, groups) else loss
+
+
 def make_sharded_train_step(plan: shardlib.MeshPlan, config: ModelConfig,
                             lr: float = 3e-4, n_micro: int | None = None,
                             accum_steps: int = 1):
     """The step over ``plan``: ``step(state, tokens) -> (state, loss)``
     with ``state`` this rank's shards and ``tokens`` this rank's block of
-    the global batch.  It updates the shards in place, as
-    :func:`train_step` does, and returns the global loss.  When the plan
-    has pp > 1 the forward runs the GPipe pipeline (:mod:`.pipeline`) with
-    ``n_micro`` microbatches (default pp); ``accum_steps`` accumulates on
-    top, each accumulation microbatch pipelined."""
+    the global batch.  It updates the shards and the step counter in
+    place, as :func:`train_step` does, and returns the global loss.  When
+    the plan has pp > 1 the forward runs the GPipe pipeline
+    (:mod:`.pipeline`) with ``n_micro`` microbatches (default pp);
+    ``accum_steps`` accumulates on top, each accumulation microbatch
+    pipelined.
+
+    The reference's jitted step with its state donated: a CUDA-graph
+    capture (:func:`donated_step`), not ``torch.jit``, one per state
+    storage and token shape, owned by ``step.programs``.  The ids are
+    checked on the way into the graph's static buffer."""
     opt = make_optimizer(lr)
     loss = functools.partial(loss_fn, n_micro=n_micro)
+    programs = _graphs.Programs()
+    static = (config, lr, n_micro, accum_steps, tuple(plan.axes.items()))
 
-    def step(state: TrainState, tokens: torch.Tensor) -> tuple[TrainState, torch.Tensor]:
+    def body(state: TrainState, tokens: torch.Tensor) -> torch.Tensor:
         loss_value, grads = sharded_loss_and_grads(plan, state.params, tokens, config,
                                                    accum_steps, loss=loss)
         opt.update_(grads, state.opt_state, state.params)
-        return TrainState(params=state.params, opt_state=state.opt_state,
-                          step=state.step + 1), loss_value
+        state.step.add_(1)
+        return loss_value
 
+    def step(state: TrainState, tokens: torch.Tensor) -> tuple[TrainState, torch.Tensor]:
+        tokens = torch.as_tensor(tokens)
+        check_token_ids(tokens, config)
+        return state, donated_step(programs, "train_step", lambda t: body(state, t), state,
+                                   inputs=(tokens,), plan=plan, device=plan.device,
+                                   static=static)
+
+    step.programs = programs
     return step

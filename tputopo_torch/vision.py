@@ -22,6 +22,11 @@ scheduled slice, beside the flagship LM.
   grads are summed over dp in f32 and divided by dp — the reference's
   global mean for equal blocks.  The optimizer is optax's ``adam``
   (:class:`~.train.Adam`).
+- The step :func:`make_vision_train_step` returns is the reference's
+  jitted step with params and optimizer state donated: one CUDA-graph
+  capture (:func:`~.train.donated_step`) per state storage and batch
+  shape, replayed on CUDA (over NCCL under a plan), eager under gloo and
+  on the CPU; :func:`vision_train_step` is its body run eagerly.
 
 Synthetic class-conditional data (a bright block at a class-determined
 place plus noise) stands in for MNIST: :func:`synthetic_batch` draws the
@@ -37,9 +42,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tputopo_torch import _graphs
 from tputopo_torch import sharding as shardlib
 from tputopo_torch.model import resolve_device
-from tputopo_torch.train import Adam, dp_mean_, loss_and_grads
+from tputopo_torch.train import Adam, AdamState, donated_step, dp_mean_, loss_and_grads
 
 
 @dataclass(frozen=True)
@@ -124,6 +130,21 @@ def vision_loss(params: dict, images: torch.Tensor, labels: torch.Tensor,
     return -logp.gather(-1, labels[:, None]).mean()
 
 
+def vision_train_step(params: dict, opt_state: AdamState, images: torch.Tensor,
+                      labels: torch.Tensor, cfg: VisionConfig, opt: Adam,
+                      plan: shardlib.MeshPlan | None = None) -> torch.Tensor:
+    """One data-parallel step, eagerly: the mean loss of this rank's block
+    ``images``/``labels``, its grads (averaged over the plan's dp, if a
+    plan is given), and ``opt``'s update of ``params`` and ``opt_state``
+    in place.  Returns the global mean loss."""
+    value, grads = loss_and_grads(params, (images, labels), cfg,
+                                  loss=lambda p, batch, c: vision_loss(p, *batch, c))
+    if plan is not None:
+        value = dp_mean_(plan, value, grads)
+    opt.update_(grads, opt_state, params)
+    return value
+
+
 def make_vision_train_step(plan: shardlib.MeshPlan | None, cfg: VisionConfig,
                            lr: float = 1e-3):
     """The data-parallel step and its optimizer: ``(step, opt)`` with
@@ -131,19 +152,23 @@ def make_vision_train_step(plan: shardlib.MeshPlan | None, cfg: VisionConfig,
     loss)``, ``images``/``labels`` this rank's block of the batch, the
     params and optimizer state updated in place and the global mean loss
     returned.  With no plan the step runs on one device, with no
-    collective."""
+    collective.  The step is :func:`vision_train_step` as a donated
+    program, a CUDA-graph capture (:func:`~.train.donated_step`), not
+    ``torch.jit``, owned by ``step.programs``."""
     opt = Adam(lr=lr)
-
-    def loss(p, batch, c):
-        return vision_loss(p, *batch, c)
+    programs = _graphs.Programs()
+    static = (cfg, lr, None if plan is None else tuple(plan.axes.items()))
 
     def step(params, opt_state, images, labels):
-        value, grads = loss_and_grads(params, (images, labels), cfg, loss=loss)
-        if plan is not None:
-            value = dp_mean_(plan, value, grads)
-        opt.update_(grads, opt_state, params)
-        return params, opt_state, value
+        state = (params, opt_state)
+        loss = donated_step(
+            programs, "vision_train_step",
+            lambda x, y: vision_train_step(params, opt_state, x, y, cfg, opt, plan), state,
+            inputs=(torch.as_tensor(images), torch.as_tensor(labels)), plan=plan,
+            device=params["fc2"].device, static=static)
+        return params, opt_state, loss
 
+    step.programs = programs
     return step, opt
 
 
