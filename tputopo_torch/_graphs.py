@@ -154,6 +154,16 @@ class Programs:
         self.captures: collections.Counter = collections.Counter()
         self.replays: collections.Counter = collections.Counter()
         self.capture_seconds = 0.0
+        # The owner's :class:`~.obs.Tracer`, or None: each call then records
+        # a host span ``dispatch`` (entry to the launch) and a device span
+        # ``replay`` tight around the launch (``call``: replay, capture or
+        # eager); ``capture_seconds`` times the captures.
+        self.tracer = None
+
+    def counts(self) -> dict:
+        """The counters as plain data."""
+        return {"captures": dict(self.captures), "replays": dict(self.replays),
+                "capture_seconds": self.capture_seconds}
 
     def release(self) -> None:
         """Drop every graph; their pool's memory goes back to the
@@ -172,8 +182,12 @@ class Programs:
         ``mutated`` is the part of ``bound`` that the body writes; with
         ``donate`` the call that captures returns its warm-up's outputs,
         the warm-up having done its work on ``mutated`` for good."""
+        tr = self.tracer
+        t_in = None if tr is None else time.perf_counter_ns()
         if not replays(device, groups):
-            return body(*inputs)
+            if tr is None:
+                return body(*inputs)
+            return _launch(tr, t_in, device, "eager", body, *inputs)
         device = torch.device(device)
         bound_sig = signature(bound)
         key = (name, static, device,
@@ -185,6 +199,10 @@ class Programs:
         if entry is not None and entry.bound != bound_sig:
             del self._graphs[key], entry  # free its outputs before the capture
             entry = None
+        if entry is None and tr is not None:  # the capture's warm-up launches
+            tr.interval("dispatch", t_in, time.perf_counter_ns())
+            tr.launched()
+            t_in = None
         if entry is None and donate:
             entry, first = self._capture_donated(name, body, device, inputs, generator,
                                                  bound_sig)
@@ -194,10 +212,15 @@ class Programs:
             entry = self._capture(name, body, device, inputs, mutated, generator,
                                   bound_sig)
             self._graphs[key] = entry
+            call = "capture"
         else:
             for buf, t in zip(entry.inputs, inputs):
                 buf.copy_(t)
-        entry.graph.replay()
+            call = "replay"
+        if tr is None:
+            entry.graph.replay()
+        else:
+            _launch(tr, t_in, device, call, entry.graph.replay)
         self.replays[name] += 1
         for kernel, n in entry.launches.items():
             kernel.launches += n
@@ -236,6 +259,20 @@ class Programs:
         self.captures[name] += 1
         self.capture_seconds += time.perf_counter() - t0
         return _Entry(bound_sig, graph, static_in, outputs, launches, generator), first
+
+
+def _launch(tracer, t_in, device, call: str, fn, *args):
+    """``fn(*args)``, a program's launch, traced: the host span
+    ``dispatch`` from ``t_in`` (None: recorded already) to the launch, the
+    stall open since a readback closed, and the device span ``replay``
+    tight around it."""
+    if t_in is not None:
+        tracer.interval("dispatch", t_in, time.perf_counter_ns())
+    tracer.launched()
+    start = tracer.mark(device)
+    out = fn(*args)
+    tracer.device_span("replay", start, tracer.mark(device), call=call)
+    return out
 
 
 def _warm_up(body, inputs, mutated, generator):

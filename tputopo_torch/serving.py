@@ -55,7 +55,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from tputopo_torch import _graphs
+from tputopo_torch import _graphs, obs
 from tputopo_torch.decode import KVCache, _block_hidden, _select, serving_ffn
 from tputopo_torch.model import (ModelConfig, _check_supported, _layer,
                                  _rmsnorm, _rope_tables, check_token_ids,
@@ -599,6 +599,16 @@ class ServingEngine:
     the GENERATED tokens newly committed for that request; it costs one
     extra readback per tick, and none when no callback is set.
 
+    ``tracer`` (an :class:`~.obs.Tracer`, settable later; None by default)
+    records a ``tick`` span per :meth:`step` with the five phase spans
+    :data:`~.obs.PHASES` as its children, a span per program call (named
+    after the program, with the request, slot, real prompt tokens, first
+    position or steps it runs) over its ``dispatch`` and ``replay`` spans
+    (:class:`~._graphs.Programs`), every device-to-host read and the stall
+    that follows it (:meth:`_read`), and each request's ``queued``,
+    ``admitted``, ``first_token`` and ``finished``.  Its export carries
+    :attr:`metrics` and the programs' counts.
+
     All device work goes through the compiled programs, as the reference's
     engine does: on CUDA each replays its CUDA graph from this engine's
     :attr:`programs` (one graph per bucket or chunk width, one decode
@@ -615,7 +625,8 @@ class ServingEngine:
                  steps_per_tick: int = 1,
                  prefill_chunk: int | None = None,
                  buffer_margin: int = 0,
-                 on_tokens: Callable[[int, list[int]], None] | None = None) -> None:
+                 on_tokens: Callable[[int, list[int]], None] | None = None,
+                 tracer: obs.Tracer | None = None) -> None:
         buckets = ((prompt_pad,) if isinstance(prompt_pad, int)
                    else tuple(sorted(set(prompt_pad))))
         if not buckets or any(b < 1 for b in buckets):
@@ -665,6 +676,19 @@ class ServingEngine:
         self._results: dict[int, list[int]] = {}
         self.metrics = {"admitted": 0, "decode_steps": 0, "finished": 0,
                         "prefill_chunks": 0, "prefix_admits": 0}
+        self.tracer = tracer
+
+    @property
+    def tracer(self) -> obs.Tracer | None:
+        return self._tracer
+
+    @tracer.setter
+    def tracer(self, tracer: obs.Tracer | None) -> None:
+        """Trace from now on (None: stop); the programs take it too."""
+        self._tracer = self.programs.tracer = tracer
+        if tracer is not None:
+            tracer.carry("engine", lambda: dict(self.metrics))
+            tracer.carry("programs", self.programs.counts)
 
     def _dev(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, dtype=np.int64), device=self.device)
@@ -675,6 +699,24 @@ class ServingEngine:
         arrays go in as host tensors; the program copies them into its
         static buffers."""
         return _PROGRAMS[name](*args, programs=self.programs, **kw)
+
+    def _run(self, name: str, work: dict, *args, **kw):
+        """:meth:`_program`, traced under a span named after the program,
+        whose attributes ``work`` says what it runs (request, slot, prompt
+        tokens, first position, steps)."""
+        if self.tracer is None:
+            return self._program(name, *args, **kw)
+        with self.tracer.span(name, **work):
+            return self._program(name, *args, **kw)
+
+    def _read(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` on the host: the engine's one device-to-host read, which
+        waits for the device; the tracer counts it and notes when the
+        device was left with nothing queued."""
+        host = t.cpu()
+        if self.tracer is not None:
+            self.tracer.readback()
+        return host
 
     # -- request surface --
 
@@ -688,8 +730,8 @@ class ServingEngine:
             raise ValueError(
                 f"prefix {len(tokens)} + smallest bucket {self.buckets[0]} "
                 f"exceeds max_len {self.max_len}")
-        cache = self._program("build_prefix_cache", self.params, self.config,
-                              _host(tokens))
+        cache = self._run("build_prefix_cache", {"prompt_tokens": len(tokens)},
+                          self.params, self.config, _host(tokens))
         pid = self._next_id
         self._next_id += 1
         self._prefixes[pid] = (tokens, cache)
@@ -737,12 +779,14 @@ class ServingEngine:
         if self.on_tokens is not None:
             self._streamed[rid] = plen
         self._queue.append((rid, prompt, max_new, prefix))
+        if self.tracer is not None:
+            self.tracer.request(rid, "queued")
         return rid
 
     # -- engine internals --
 
     def _free_slots(self) -> list[int]:
-        seq = self.state.seq_id.tolist()
+        seq = self._read(self.state.seq_id).tolist()
         return [i for i in range(self.slots)
                 if seq[i] < 0 and i not in self._prefilling]
 
@@ -751,13 +795,15 @@ class ServingEngine:
         last token finishes through :func:`admit_final_chunk`; chunks past
         it never run."""
         rid, row, plen, max_new, start, ch = self._prefilling[slot]
+        work = {"rid": rid, "slot": slot, "prompt_tokens": min(ch, plen - start),
+                "first_pos": start}
         if start + ch < plen:  # a later chunk holds position plen-1
-            self._program("prefill_chunk", self.params, self.state, self.config,
-                          slot, _host(row[start:start + ch]), start)
+            self._run("prefill_chunk", work, self.params, self.state, self.config,
+                      slot, _host(row[start:start + ch]), start)
             self._prefilling[slot] = (rid, row, plen, max_new, start + ch, ch)
         else:
-            self._program(
-                "admit_final_chunk", self.params, self.state, self.config, slot,
+            self._run(
+                "admit_final_chunk", work, self.params, self.state, self.config, slot,
                 _host(row), _host(row[start:start + ch]), start, plen, rid,
                 max_new, self.eos_id, temperature=self.temperature,
                 top_k=self.top_k, generator=self.generator)
@@ -775,6 +821,8 @@ class ServingEngine:
             if not self._queue:
                 break
             rid, prompt, max_new, pfx = self._queue.pop(0)
+            if self.tracer is not None:
+                self.tracer.request(rid, "admitted")
             pad = next(b for b in self.buckets if b >= len(prompt))
             if pfx is not None:
                 # Copy the prebuilt prefix KV into the slot, then prefill
@@ -785,7 +833,9 @@ class ServingEngine:
                 row = np.zeros((self.max_len,), np.int64)
                 row[:P] = ptoks
                 row[P:P + len(prompt)] = prompt
-                self._program("copy_prefix", self.state, pcache, slot)
+                self._run("copy_prefix", {"rid": rid, "slot": slot,
+                                          "prompt_tokens": 0, "first_pos": 0},
+                          self.state, pcache, slot)
                 self.metrics["prefix_admits"] += 1
                 ch = (self.prefill_chunk
                       if self.prefill_chunk and pad > self.prefill_chunk
@@ -806,10 +856,12 @@ class ServingEngine:
                 continue
             padded = np.zeros((pad,), np.int64)
             padded[:len(prompt)] = prompt
-            self._program("admit", self.params, self.state, self.config, slot,
-                          _host(padded), len(prompt), rid, max_new, self.eos_id,
-                          temperature=self.temperature, top_k=self.top_k,
-                          generator=self.generator)
+            self._run("admit", {"rid": rid, "slot": slot, "prompt_tokens": len(prompt),
+                                "first_pos": 0},
+                      self.params, self.state, self.config, slot, _host(padded),
+                      len(prompt), rid, max_new, self.eos_id,
+                      temperature=self.temperature, top_k=self.top_k,
+                      generator=self.generator)
             self.metrics["admitted"] += 1
             self._post_admit(slot, padded, len(prompt))
 
@@ -819,18 +871,23 @@ class ServingEngine:
         (the speculative engine prefills its draft cache here)."""
 
     def _harvest(self) -> None:
-        done = self.state.done.cpu().numpy()
+        done = self._read(self.state.done).numpy()
         if not done.any():
             return
-        seq = self.state.seq_id.cpu().numpy()
-        length = self.state.length.cpu().numpy()
-        tokens = self.state.tokens.cpu().numpy()
+        seq = self._read(self.state.seq_id).numpy()
+        length = self._read(self.state.length).numpy()
+        tokens = self._read(self.state.tokens).numpy()
         clear = []
         for slot in np.nonzero(done)[0]:
             rid = int(seq[slot])
             if rid >= 0:
                 self._results[rid] = tokens[slot, :int(length[slot])].tolist()
                 self.metrics["finished"] += 1
+                if self.tracer is not None:
+                    # without a stream, a request's tokens first reach the
+                    # host here
+                    self.tracer.request(rid, "first_token")
+                    self.tracer.request(rid, "finished")
                 # The final emission happened at the end of the tick that
                 # finished this slot, before this harvest.
                 self._streamed.pop(rid, None)
@@ -844,13 +901,29 @@ class ServingEngine:
     def step(self) -> None:
         """One engine tick: harvest finished -> advance chunked prefills by
         one chunk each -> admit from the queue -> one decode tick (if
-        anything is active) -> stream."""
-        self._harvest()
+        anything is active) -> stream; each a phase span of the tick's
+        span when traced."""
+        phases = (self._harvest, self._prefill_phase, self._admit_pending,
+                  self._decode_phase, self._stream_phase)
+        tr = self.tracer
+        if tr is None:
+            for phase in phases:
+                phase()
+            return
+        with tr.span("tick"):
+            for name, phase in zip(obs.PHASES, phases):
+                with tr.span(name):
+                    phase()
+
+    def _prefill_phase(self) -> None:
         if self._prefilling:
             self._advance_prefills()
-        self._admit_pending()
-        if bool(self.state.active.any()):
+
+    def _decode_phase(self) -> None:
+        if bool(self._read(self.state.active.any())):
             self._decode_tick()
+
+    def _stream_phase(self) -> None:
         if self.on_tokens is not None:
             self._emit_stream()
 
@@ -858,8 +931,8 @@ class ServingEngine:
         """Fire ``on_tokens`` with each live request's newly committed
         generated tokens.  Runs before harvest clears a finished slot, so
         the final tokens, EOS included, stream before run() returns them."""
-        seq = self.state.seq_id.tolist()
-        length = self.state.length.tolist()
+        seq = self._read(self.state.seq_id).tolist()
+        length = self._read(self.state.length).tolist()
         tokens = None
         for slot in range(self.slots):
             sent = self._streamed.get(seq[slot]) if seq[slot] >= 0 else None
@@ -868,7 +941,9 @@ class ServingEngine:
             cur = length[slot]
             if cur > sent:
                 if tokens is None:  # one readback, only when needed
-                    tokens = self.state.tokens.cpu().numpy()
+                    tokens = self._read(self.state.tokens).numpy()
+                if self.tracer is not None:
+                    self.tracer.request(seq[slot], "first_token")
                 self.on_tokens(seq[slot], tokens[slot, sent:cur].tolist())
                 self._streamed[seq[slot]] = cur
 
@@ -876,12 +951,13 @@ class ServingEngine:
         """``steps_per_tick`` decode steps in one program: one replay a tick."""
         kw = dict(temperature=self.temperature, top_k=self.top_k,
                   generator=self.generator)
+        work = {"steps": self.steps_per_tick}
         if self.steps_per_tick == 1:
-            self._program("decode_step", self.params, self.state, self.config,
-                          self.eos_id, **kw)
+            self._run("decode_step", work, self.params, self.state, self.config,
+                      self.eos_id, **kw)
         else:
-            self._program("decode_steps", self.params, self.state, self.config,
-                          self.eos_id, self.steps_per_tick, **kw)
+            self._run("decode_steps", work, self.params, self.state, self.config,
+                      self.eos_id, self.steps_per_tick, **kw)
         self.metrics["decode_steps"] += self.steps_per_tick
 
     def run(self, max_steps: int = 100_000) -> dict[int, list[int]]:
@@ -890,7 +966,7 @@ class ServingEngine:
         for _ in range(max_steps):
             self.step()
             if not self._queue and not self._prefilling and not bool(
-                    (self.state.seq_id >= 0).any()):
+                    self._read((self.state.seq_id >= 0).any())):
                 break
         self._harvest()
         return dict(self._results)

@@ -443,7 +443,7 @@ class SpecServingEngine(ServingEngine):
 
     def __init__(self, params: dict, config: ModelConfig, *, slots: int,
                  max_len: int, prompt_pad, draft_layers: int, gamma: int = 4,
-                 eos_id: int = -1, on_tokens=None) -> None:
+                 eos_id: int = -1, on_tokens=None, tracer=None) -> None:
         if gamma < 1:
             raise ValueError(f"gamma must be >= 1, got {gamma}")
         self.gamma = gamma
@@ -453,7 +453,7 @@ class SpecServingEngine(ServingEngine):
         # submissions stay bounded by the logical max_len.
         super().__init__(params, config, slots=slots, max_len=max_len,
                          prompt_pad=prompt_pad, eos_id=eos_id,
-                         buffer_margin=gamma + 1, on_tokens=on_tokens)
+                         buffer_margin=gamma + 1, on_tokens=on_tokens, tracer=tracer)
         self._dcache = KVCache.create(self.draft_cfg, slots, max_len + gamma + 1,
                                       device=self.device)
         self._dlen = torch.zeros((slots,), dtype=torch.long, device=self.device)
@@ -474,15 +474,17 @@ class SpecServingEngine(ServingEngine):
         return SPEC_PROGRAMS[name](*args, programs=self.programs, **kw)
 
     def _post_admit(self, slot: int, padded, prompt_len: int) -> None:
-        self._program("_draft_prefill", self.draft_params, self.draft_cfg, self._dcache,
-                      slot, _host(padded), dlen=self._dlen, prompt_len=prompt_len)
+        self._run("_draft_prefill", {"slot": slot, "prompt_tokens": prompt_len,
+                                     "first_pos": 0},
+                  self.draft_params, self.draft_cfg, self._dcache, slot, _host(padded),
+                  dlen=self._dlen, prompt_len=prompt_len)
 
     def _decode_tick(self) -> None:
-        accepted = self._program("spec_tick", self.params, self.draft_params, self.state,
-                                 self._dcache, self._dlen, self.config, self.draft_cfg,
-                                 self.eos_id, self.gamma)
+        accepted = self._run("spec_tick", {"steps": 1}, self.params, self.draft_params,
+                             self.state, self._dcache, self._dlen, self.config,
+                             self.draft_cfg, self.eos_id, self.gamma)
         self.metrics["decode_steps"] += 1  # target streams paid
-        self.metrics["drafted_accepted"] += int(accepted)
+        self.metrics["drafted_accepted"] += int(self._read(accepted))
 
 
 # The speculative engine's device programs by name, and their bodies run op

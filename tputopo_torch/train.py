@@ -192,19 +192,27 @@ def loss_fn(params: dict, tokens: torch.Tensor, config: ModelConfig,
 
 
 def loss_and_grads(params: dict, tokens: torch.Tensor, config: ModelConfig,
-                   loss=loss_fn) -> tuple[torch.Tensor, list]:
+                   loss=loss_fn, tracer=None) -> tuple[torch.Tensor, list]:
     """``jax.value_and_grad(loss)``: the loss and one grad per leaf of
     ``params`` (in :func:`_leaves` order), leaving ``params`` untouched.
     ``loss(params, tokens, config)`` is :func:`loss_fn` unless another
-    objective is given (the LoRA step differentiates in the adapter)."""
+    objective is given (the LoRA step differentiates in the adapter).
+    With a ``tracer`` whose lap group is open (:meth:`~.obs.Tracer.lap_group`),
+    the forward ends the lap ``train.forward`` and the grads the lap
+    ``train.backward``."""
     leaves = [p.detach().requires_grad_() for p in _leaves(params)]
     value = loss(_rebuild(params, leaves), tokens, config)
-    return value.detach(), list(torch.autograd.grad(value, leaves))
+    if tracer is not None:
+        tracer.lap("train.forward", leaves[0].device)
+    grads = list(torch.autograd.grad(value, leaves))
+    if tracer is not None:
+        tracer.lap("train.backward", leaves[0].device)
+    return value.detach(), grads
 
 
 def accumulated_loss_and_grads(params: dict, tokens: torch.Tensor, config: ModelConfig,
-                               accum_steps: int = 1,
-                               loss=loss_fn) -> tuple[torch.Tensor, list]:
+                               accum_steps: int = 1, loss=loss_fn,
+                               tracer=None) -> tuple[torch.Tensor, list]:
     """:func:`loss_and_grads` of the batch, or with ``accum_steps > 1`` the
     mean over that many equal microbatches, run one after another: their
     grads are summed, so activation memory drops to one microbatch's worth
@@ -212,13 +220,13 @@ def accumulated_loss_and_grads(params: dict, tokens: torch.Tensor, config: Model
     model: cross-entropy means over equal chunks average to the full
     mean)."""
     if accum_steps <= 1:
-        return loss_and_grads(params, tokens, config, loss)
+        return loss_and_grads(params, tokens, config, loss, tracer)
     B = tokens.shape[0]
     if B % accum_steps:
         raise ValueError(f"batch {B} not divisible by accum_steps {accum_steps}")
     total, grads = 0.0, None
     for mb in tokens.reshape(accum_steps, B // accum_steps, tokens.shape[1]):
-        l, g = loss_and_grads(params, mb, config, loss)
+        l, g = loss_and_grads(params, mb, config, loss, tracer)
         total = total + l
         grads = g if grads is None else [a.add_(b) for a, b in zip(grads, g)]
     return total / accum_steps, [g.div_(accum_steps) for g in grads]
@@ -299,7 +307,7 @@ def make_sharded_state(plan: shardlib.MeshPlan, config: ModelConfig, seed: int =
 def sharded_loss_and_grads(plan: shardlib.MeshPlan, params: dict,
                            tokens: torch.Tensor, config: ModelConfig,
                            accum_steps: int = 1, *, loss=loss_fn,
-                           tp_partial=None) -> tuple[torch.Tensor, list]:
+                           tp_partial=None, tracer=None) -> tuple[torch.Tensor, list]:
     """This rank's part of one step before the update: the global loss and
     the global grads' local shards (in :func:`_leaves` order), from this
     rank's block of the batch ``tokens`` (:func:`~.sharding.local_batch`).
@@ -310,10 +318,12 @@ def sharded_loss_and_grads(plan: shardlib.MeshPlan, params: dict,
     ``wk``/``wv`` when they are kept whole (:func:`~.sharding.kv_replicated`),
     each tp rank holding their grad from its own q heads only.  Under sp
     the loss and every grad are summed over sp (no leaf is split over sp,
-    and each rank's are its chunk's share)."""
+    and each rank's are its chunk's share).  A ``tracer`` is passed on to
+    :func:`loss_and_grads`; the collectives here end one more lap
+    ``train.backward``."""
     with shardlib.activate(plan):
         value, grads = accumulated_loss_and_grads(params, tokens, config,
-                                                  accum_steps, loss)
+                                                  accum_steps, loss, tracer)
     if tp_partial is None:
         tp_partial = (("layers.wk", "layers.wv")
                       if shardlib.kv_replicated(plan, config) else ())
@@ -326,7 +336,10 @@ def sharded_loss_and_grads(plan: shardlib.MeshPlan, params: dict,
         value = all_reduce_f32(value.reshape(1), group)[0]
         for g in grads:
             dist.all_reduce(g, group=group)
-    return dp_mean_(plan, value, grads), grads
+    value = dp_mean_(plan, value, grads)
+    if tracer is not None:
+        tracer.lap("train.backward", plan.device)
+    return value, grads
 
 
 def dp_mean_(plan: shardlib.MeshPlan, value: torch.Tensor, grads: list) -> torch.Tensor:
@@ -366,7 +379,7 @@ def donated_step(programs: _graphs.Programs, name: str, body, state, *,
 
 def make_sharded_train_step(plan: shardlib.MeshPlan, config: ModelConfig,
                             lr: float = 3e-4, n_micro: int | None = None,
-                            accum_steps: int = 1):
+                            accum_steps: int = 1, tracer=None):
     """The step over ``plan``: ``step(state, tokens) -> (state, loss)``
     with ``state`` this rank's shards and ``tokens`` this rank's block of
     the global batch.  It updates the shards and the step counter in
@@ -379,17 +392,34 @@ def make_sharded_train_step(plan: shardlib.MeshPlan, config: ModelConfig,
     The reference's jitted step with its state donated: a CUDA-graph
     capture (:func:`donated_step`), not ``torch.jit``, one per state
     storage and token shape, owned by ``step.programs``.  The ids are
-    checked on the way into the graph's static buffer."""
+    checked on the way into the graph's static buffer.
+
+    With a ``tracer`` (:class:`~.obs.Tracer`) each step records one lap
+    group of device spans: ``train.forward`` (the step's start to the loss
+    value), ``train.backward`` (to the grads, the collectives and the dp
+    mean included) and ``train.optimizer`` (``AdamW.update_`` and the
+    counter); with ``accum_steps`` > 1 a name recurs once a microbatch.
+    Under replay their events are nodes of the captured graph, which every
+    replay records again, so the tracer's export holds the last completed
+    step's split.  Without one the graph is the untraced step's, node for
+    node."""
     opt = make_optimizer(lr)
     loss = functools.partial(loss_fn, n_micro=n_micro)
     programs = _graphs.Programs()
+    programs.tracer = tracer
+    if tracer is not None:
+        tracer.carry("programs", programs.counts)
     static = (config, lr, n_micro, accum_steps, tuple(plan.axes.items()))
 
     def body(state: TrainState, tokens: torch.Tensor) -> torch.Tensor:
+        if tracer is not None:
+            tracer.lap_group(plan.device)
         loss_value, grads = sharded_loss_and_grads(plan, state.params, tokens, config,
-                                                   accum_steps, loss=loss)
+                                                   accum_steps, loss=loss, tracer=tracer)
         opt.update_(grads, state.opt_state, state.params)
         state.step.add_(1)
+        if tracer is not None:
+            tracer.lap("train.optimizer", plan.device)
         return loss_value
 
     def step(state: TrainState, tokens: torch.Tensor) -> tuple[TrainState, torch.Tensor]:
