@@ -15,7 +15,9 @@ Phases, each printed as one JSON line on stdout:
 3. each kernel against its plain PyTorch version on the card, at tiny
    shapes and at the main path's shape, with its stated tolerance, and
    timed beside the plain version and one PyTorch library call: the flash
-   forward, then the dQ and dK/dV backward kernels;
+   forward, then the dQ and dK/dV backward kernels, then the serving
+   step's decode attention over a bf16 cache (``decode_attn``) at the
+   serving cells' caches, timed beside its byte bound;
 4. the inference forward of Llama-3-8B at full width (32 layers, random
    weights from a seed) on 2048 tokens: ``attn_impl="auto"`` must launch
    the flash kernel once per layer, the logits must be finite and agree
@@ -24,7 +26,9 @@ Phases, each printed as one JSON line on stdout:
 6. serving at full width, 32 layers: the continuous-batching engine (8
    slots, chunked prefill, one shared prefix, streaming) over a seeded
    stream of 24 requests, twice with identical tokens, every greedy pick
-   held against the whole forward and no flash launch; then the same
+   held against the whole forward and no flash launch, the traced run's
+   ``decode_attention.launches`` one a layer for each replayed decode
+   step; then the same
    stream with int8 weights and an int8 KV cache, and a few requests with
    grouped int4 weights at 4 layers (below), each against its own tree's
    forward;
@@ -206,6 +210,24 @@ SERVE_INT8_BYTE_RATIO = 0.55  # the reference's bound (tests/test_quant.py)
 # are [tokens, 32, 128256].  Its KV cache is bf16: GEN_GAP holds.
 SERVE_INT4_LAYERS, SERVE_INT4_GROUP = 4, 128
 SERVE_INT4_REQUESTS, SERVE_INT4_PROMPT, SERVE_INT4_NEW = 4, (16, 512), (8, 16)
+
+# The decode-attention kernel against the einsums of serving._attend_ragged
+# on the same bf16 cache: both sum the same f32 products in another order
+# (the kernel in splits of 256 positions merged at the end), so the f32
+# outputs differ by a few f32 ulps and their bf16 roundings by at most one
+# bf16 ulp of the reference's output.  The ulp is taken at no less than
+# 2**-8, the scale at which an f32 sum's own error (~1e-7 of the values
+# summed) could reach a bf16 ulp of an output rounding near zero.
+DECODE_ULPS, DECODE_ULP_FLOOR = 1, 2.0 ** -8
+# Mistral-7B's attention (32 query heads, 8 KV heads, head dim 128) at the
+# serving cells' caches: chat 32 slots x 2048, longdoc 20 slots x 8192.
+DECODE_HEADS = (32, 8, 128)
+DECODE_SHAPES = {"chat": (32, 2048), "longdoc": (20, 8192)}
+DECODE_TS = (1, 4, 16)
+# Beside them, shapes off the main path: group 2 on a cache that ends
+# inside a tile, group 3, one slot; (label, B, S, N, KV, H, T).
+DECODE_ODD = (("group2", 12, 200, 8, 4, 128, 3), ("group3", 12, 300, 12, 4, 128, 5),
+              ("one_slot", 1, 1000, 32, 8, 128, 1))
 
 # Backward kernels against their plain versions.  f32: the reference's grad
 # tolerance (tests/test_attention.py:90), elementwise.  bf16, as
@@ -402,6 +424,22 @@ def cuda_ms(fn, launches: int = 20, reps: int = 5, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, calls: int = 20) -> float:
+    """Device time of one call as a CUDA graph replays it: ``calls`` calls
+    captured in one graph, timed by :func:`cuda_ms` over replays, divided
+    by ``calls``.  No host work is left between the calls, as in a replayed
+    serving step, where a wrapper's own host time would otherwise be timed."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = cuda_ms(graph.replay, launches=5) / calls
+    del graph
+    return ms
+
+
 def flash_bound_ms(B, S, N, H, dtype, causal, products=2, n_io=4,
                    n_rows=1) -> tuple[float, str]:
     """Least time for an attention kernel: the causal pairs actually needed,
@@ -589,6 +627,121 @@ def phase_flash_bwd(att) -> list[dict]:
     return entries
 
 
+def bf16_ulps(got: torch.Tensor, ref: torch.Tensor, floor: float) -> torch.Tensor:
+    """|got - ref| in bf16 ulps of ref's magnitude, taken at no less than
+    ``floor``: a bf16 of magnitude in [2**(e-1), 2**e) has ulp 2**(e-8)."""
+    _, e = torch.frexp(ref.float().abs().clamp(min=floor))
+    return (got.float() - ref.float()).abs() / torch.exp2(e.float() - 8)
+
+
+def decode_positions(cell: str, B: int, S: int, seed: int) -> torch.Tensor:
+    """Slot positions as a serving cell holds them mid-run: a request's
+    prompt plus a uniform share of its answer, drawn from the cell's
+    lengths; chat has about 22 of 32 slots busy at 2.4 requests/s, its idle
+    slots at S - 1 (where the decode step parks them)."""
+    rng = np.random.default_rng(seed)
+    if cell == "chat":
+        prompt = np.clip(np.exp(rng.normal(np.log(256), 0.8, B)), 16, 1024)
+        answer = np.clip(np.exp(rng.normal(np.log(64), 0.8, B)), 16, 512)
+        pos = prompt + rng.uniform(size=B) * answer
+        pos[22:] = S - 1
+    else:
+        prompt = rng.uniform(1536, 6144, B)
+        answer = np.clip(np.exp(rng.normal(np.log(256), 0.6, B)), 64, 1024)
+        pos = prompt + rng.uniform(size=B) * answer
+    return torch.tensor(np.minimum(pos.astype(np.int64), S - 1), device="cuda")
+
+
+def decode_bound_ms(pos: torch.Tensor, T: int, S: int, N: int, KV: int, H: int) -> float:
+    """Least time for one decode-attention call: every cache row a slot's
+    queries attend (K and V, bf16) read once, q read and out written once,
+    at the card's memory rate; its f32 operations are far below their
+    peak's share."""
+    last = torch.where(pos < 0, S - 1, torch.clamp(pos + T - 1, max=S - 1))
+    rows = int((last + 1).sum())
+    nbytes = rows * KV * H * 2 * 2 + 2 * pos.numel() * T * N * H * 2
+    return nbytes / PEAK_BYTES * 1e3
+
+
+def phase_decode_attn(att, serving, kernel) -> dict:
+    """The decode-attention kernel against serving's einsums at Mistral's
+    heads and both serving cells' caches, T in DECODE_TS; positions at 0, a
+    tile's and a split's edges, S - 1 (an idle slot), below 0 (every
+    position masked for the first query) and past S - 1; two launches bit
+    for bit.  Then timed at each cell's shape and position mix, T = 1, as
+    captured graphs replay it (:func:`graph_ms`), beside its byte bound, the
+    einsums and masked SDPA (a yardstick the port never calls)."""
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    cases = []
+    shapes = [(cell, B, S, *DECODE_HEADS, T) for cell, (B, S) in DECODE_SHAPES.items()
+              for T in DECODE_TS] + list(DECODE_ODD)
+    key = ck = cv = None
+    for cell, B, S, N, KV, H, T in shapes:
+        if key != (B, S, KV, H):  # one cache per shape, the last one freed first
+            key = ck = cv = None
+            ck, cv = (torch.randn((B, S, KV, H), generator=gen, device="cuda",
+                                  dtype=torch.bfloat16) for _ in range(2))
+            key = (B, S, KV, H)
+        q = torch.randn((B, T, N, H), generator=gen, device="cuda", dtype=torch.bfloat16)
+        edges = [0, 63, 64, 255, 256, 257, S - 1, -1, -T, S - T, S + 3][:B]
+        pos = torch.randint(0, S - T + 1, (B,), generator=gen, device="cuda")
+        pos[:len(edges)] = torch.tensor(edges, device="cuda")
+        before = kernel.launches
+        got = att._decode_attention_cuda(q, ck, cv, pos)
+        again = att._decode_attention_cuda(q, ck, cv, pos)
+        ref = serving._attend_ragged_plain(q, ck, cv, pos, N // KV)
+        torch.cuda.synchronize()
+        ulps = bf16_ulps(got, ref, DECODE_ULP_FLOOR)
+        masked = ulps[7, 0].max().item() if B > 7 else None
+        rec = {"phase": "decode_attn_vs_plain", "cell": cell, "shape": [B, T, S, N, KV, H],
+               "edge_positions": edges, "max_ulps": ulps.max().item(),
+               "elements_differing": int((got != ref).sum()),
+               "max_abs_err": (got.float() - ref.float()).abs().max().item(),
+               "all_masked_row_max_ulps": masked,
+               "tolerance": {"bf16_ulps": DECODE_ULPS, "ulp_floor": DECODE_ULP_FLOOR},
+               "repeat_bitwise": bool(torch.equal(got, again)),
+               "launches": kernel.launches - before}
+        rec["within"] = rec["max_ulps"] <= DECODE_ULPS
+        emit(rec)
+        check(bool(torch.isfinite(got.float()).all()), "decode_attn output not finite")
+        check(rec["within"], f"decode_attn disagrees with the einsums: {rec}")
+        check(rec["repeat_bitwise"], f"decode_attn: two launches differ: {rec}")
+        check(rec["launches"] == 2, f"decode_attn: {rec['launches']} launches, want 2")
+        cases.append(rec)
+    del ck, cv
+
+    N, KV, H = DECODE_HEADS
+    group = N // KV
+    timing = {}
+    for cell, (B, S) in DECODE_SHAPES.items():
+        ck, cv = (torch.randn((B, S, KV, H), generator=gen, device="cuda",
+                              dtype=torch.bfloat16) for _ in range(2))
+        q = torch.randn((B, 1, N, H), generator=gen, device="cuda", dtype=torch.bfloat16)
+        pos = decode_positions(cell, B, S, 17)
+        kernel_ms = graph_ms(lambda: att._decode_attention_cuda(q, ck, cv, pos))
+        plain_ms = graph_ms(lambda: serving._attend_ragged_plain(q, ck, cv, pos, group))
+        # SDPA's layout [B, heads, S, H], copied outside the timed calls
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, ck, cv))
+        mask = (torch.arange(S, device="cuda") <= pos[:, None])[:, None, None, :]
+        library_ms = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True))
+        bound_ms = decode_bound_ms(pos, 1, S, N, KV, H)
+        timing[cell] = {"shape": [B, 1, S, N, KV, H], "live_rows": int((pos + 1).sum()),
+                        "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                        "library_ms": library_ms, "bound_ms": bound_ms,
+                        "bound_share": bound_ms / kernel_ms}
+        emit({"phase": "decode_attn_timing", "cell": cell, **timing[cell],
+              "library": "scaled_dot_product_attention, boolean mask, enable_gqa",
+              "bound_by": "bytes"})
+        del ck, cv, kt, vt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"name": kernel.name, "route": "cuda",
+            "source": kernel.source.relative_to(REPO).as_posix(),
+            "replaces": "none: tputopo/workloads/serving.py:_attend_ragged's einsums",
+            "max_ulps": max(c["max_ulps"] for c in cases), "timing": timing}
+
+
 def phase_forward(tt, kernels) -> tuple:
     """Llama-3-8B inference forward at full width, 2048 tokens.  Returns
     (params, config, tokens, flash launches of the counted forward)."""
@@ -749,10 +902,12 @@ def picks_vs_forward(tt, params, cfg, rows, plens) -> dict:
 
 
 class _OpCount(TorchDispatchMode):
-    """Counts the ATen operations dispatched inside it: each is a host
-    round trip through the dispatcher and, on the card, a kernel launch,
-    but ``reads``, the scalar readbacks (``int(t)``, ``t.item()``), which
-    wait for the device instead."""
+    """Counts the ATen operations dispatched inside it on the card's
+    tensors: each is a host round trip through the dispatcher and a kernel
+    launch, but ``reads``, the readbacks (a scalar read of a device tensor,
+    or a device tensor copied to the host), which wait for the device
+    instead.  An operation on host tensors alone (the int of a value
+    already read back) launches nothing and is not counted."""
 
     def __init__(self):
         super().__init__()
@@ -760,9 +915,19 @@ class _OpCount(TorchDispatchMode):
         self.reads = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        self.n += 1
-        self.reads += func is torch.ops.aten._local_scalar_dense.default
-        return func(*args, **(kwargs or {}))
+        kwargs = kwargs or {}
+        tensors = [t for t in torch.utils._pytree.tree_leaves((args, kwargs))
+                   if isinstance(t, torch.Tensor)]
+        device = kwargs.get("device")
+        if (any(t.device.type != "cpu" for t in tensors)
+                or (device is not None and torch.device(device).type != "cpu")):
+            self.n += 1
+            to_host = ((func is torch.ops.aten._to_copy.default and device is not None
+                        and torch.device(device).type == "cpu")
+                       or (func is torch.ops.aten.copy_.default
+                           and args[0].device.type == "cpu"))
+            self.reads += to_host or func is torch.ops.aten._local_scalar_dense.default
+        return func(*args, **kwargs)
 
 
 def ops_per_decode_step(params, cfg) -> int:
@@ -796,14 +961,23 @@ def phase_serve(tt, kernels, params, cfg) -> tuple:
     reset(kernels)
     torch.cuda.reset_peak_memory_stats()
     state = card_state()
-    runs = [run_engine(tt, params, cfg, prefix, reqs) for _ in range(2)]
+    tracer = tt.obs.Tracer()
+    runs = [run_engine(tt, params, cfg, prefix, reqs),
+            run_engine(tt, params, cfg, prefix, reqs, make=lambda cb: tt.ServingEngine(
+                params, cfg, on_tokens=cb, tracer=tracer, **SERVE_ENGINE))]
     launches = launch_counts(kernels)
+    traced = tracer.export()
+    decode_attn = {"launches": traced["decode_attention"]["launches"],
+                   "decode_steps_replayed": traced["programs"]["replays"].get("decode_step", 0)}
     peak = torch.cuda.max_memory_allocated() / 1e9
     a, b = runs
     check(a["rows"] == b["rows"], "serve: the two runs gave different tokens")
     check_rows(b["rows"], b["plens"], reqs, prefix, cfg.vocab_size, "serve")
     check(all(n == 0 for n in launches.values()),
           f"serve launched a flash kernel: {launches}")
+    check(decode_attn["decode_steps_replayed"] > 0 and decode_attn["launches"]
+          == cfg.n_layers * decode_attn["decode_steps_replayed"],
+          f"serve: decode_attn launches {decode_attn}, want {cfg.n_layers} a replayed step")
     vs = picks_vs_forward(tt, params, cfg, b["rows"], b["plens"])
     rec = {"phase": "serve", "model": "llama3_8b", "layers": cfg.n_layers,
            "weights": "f32 masters, bf16 compute", "kv": "bf16",
@@ -816,6 +990,7 @@ def phase_serve(tt, kernels, params, cfg) -> tuple:
            "ttft_p50_s": [a["ttft_p50_s"], b["ttft_p50_s"]],
            "ttft_p95_s": [a["ttft_p95_s"], b["ttft_p95_s"]],
            "metrics": b["metrics"], "identical_runs": True, "launches": launches,
+           "decode_attn_traced": decode_attn,
            "peak_mem_gb": peak, "programs": [a["programs"], b["programs"]],
            **vs, "bound_max_gap": GEN_GAP,
            "ops_per_decode_step": ops_per_decode_step(params, cfg),
@@ -823,7 +998,7 @@ def phase_serve(tt, kernels, params, cfg) -> tuple:
     emit(rec)
     check(vs["vs_forward_max_gap"] <= GEN_GAP,
           f"serve: a pick is not the forward's greedy pick: {rec['vs_forward_max_gap']}")
-    return (prefix, reqs), launches, runs
+    return (prefix, reqs), launches, runs, decode_attn
 
 
 def phase_serve_int8(tt, params, cfg, stream) -> None:
@@ -839,7 +1014,9 @@ def phase_serve_int8(tt, params, cfg, stream) -> None:
         ("int8_to_bf16", qp["layers"]["w_gate"]["int8"]))}
     qcfg = dataclasses.replace(cfg, kv_dtype="int8")
     torch.cuda.reset_peak_memory_stats()
+    decode_attn = tt._kernels.DECODE_ATTN.launches
     run = run_engine(tt, qp, qcfg, prefix, reqs)
+    decode_attn = tt._kernels.DECODE_ATTN.launches - decode_attn
     peak = torch.cuda.max_memory_allocated() / 1e9
     check_rows(run["rows"], run["plens"], reqs, prefix, cfg.vocab_size, "serve_int8")
     vs = picks_vs_forward(tt, qp, cfg, run["rows"], run["plens"])
@@ -853,11 +1030,13 @@ def phase_serve_int8(tt, params, cfg, stream) -> None:
            "metrics": run["metrics"], "streamed_bytes_raw": raw_b,
            "streamed_bytes_int8": int8_b, "byte_ratio": int8_b / raw_b,
            "w_gate_layer_cast_ms": cast_ms,
-           "ops_per_decode_step": ops,
+           "ops_per_decode_step": ops, "decode_attn_launches": decode_attn,
            "bound_byte_ratio": SERVE_INT8_BYTE_RATIO, "peak_mem_gb": peak, **vs,
            "bound_max_gap": SERVE_INT8_GAP, "seconds": time.perf_counter() - t_phase}
     emit(rec)
     check(int8_b / raw_b < SERVE_INT8_BYTE_RATIO, f"serve_int8: byte ratio {rec}")
+    check(decode_attn == 0, f"serve_int8: the int8 cache launched decode_attn {decode_attn} "
+                            "times; it keeps the einsums")
     check(vs["vs_forward_max_gap"] <= SERVE_INT8_GAP,
           f"serve_int8: a pick is off the int8 forward's: {rec['vs_forward_max_gap']}")
 
@@ -2502,7 +2681,7 @@ def tp2_rank_main(rank: int, workdir: str) -> int:
         state = tr.make_sharded_state(plan, cfg, 0, lr=TRAIN_LR)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
-        reset(_kernels.KERNELS)
+        reset(_kernels.FLASH)
         sh.HOST_STAGED.update(calls=0, bytes=0)
         torch.cuda.reset_peak_memory_stats()
         step = tr.make_sharded_train_step(plan, cfg, lr=TRAIN_LR, n_micro=opts.get("n_micro"))
@@ -2514,7 +2693,7 @@ def tp2_rank_main(rank: int, workdir: str) -> int:
         programs = {"captures": sum(step.programs.captures.values()),
                     "replays": sum(step.programs.replays.values())}
         del step
-        launches = launch_counts(_kernels.KERNELS)
+        launches = launch_counts(_kernels.FLASH)
         staged = dict(sh.HOST_STAGED)
         step_peak = torch.cuda.max_memory_allocated() / 1e9
         n_local = sum(p.numel() for p in tr._leaves(state.params))
@@ -2714,7 +2893,7 @@ def device_profile(path: str, fn, top: int = 12) -> dict:
 def main() -> int:
     check(torch.cuda.is_available(), "no CUDA device")
     import tputopo_torch as tt
-    from tputopo_torch import _kernels, attention as att
+    from tputopo_torch import _kernels, attention as att, serving
     from tputopo_torch.distributed import shutdown
 
     name = card()
@@ -2739,33 +2918,35 @@ def main() -> int:
 
     entries = [timed("flash", phase_flash, att, _kernels.FLASH_FWD),
                *timed("flash_bwd", phase_flash_bwd, att)]
-    timed("repairs", phase_repairs, tt, att, _kernels.KERNELS)
+    decode_entry = timed("decode_attn", phase_decode_attn, att, serving,
+                         _kernels.DECODE_ATTN)
+    timed("repairs", phase_repairs, tt, att, _kernels.FLASH)
     gc.collect()
     torch.cuda.empty_cache()
     params, cfg, tokens, fwd_launches = timed("forward", phase_forward, tt,
-                                              _kernels.KERNELS)
-    prompt = timed("generate", phase_generate, tt, _kernels.KERNELS, params, cfg)
+                                              _kernels.FLASH)
+    prompt = timed("generate", phase_generate, tt, _kernels.FLASH, params, cfg)
     timed("profile_forward", lambda: emit(device_profile(
         "forward", lambda: tt.forward(params, tokens, cfg))))
     timed("profile_generate", lambda: emit(device_profile(
         "generate", lambda: tt.generate(params, prompt, cfg, max_new=GEN_NEW))))
-    stream, serve_launches, serve_runs = timed("serve", phase_serve, tt,
-                                               _kernels.KERNELS, params, cfg)
+    stream, serve_launches, serve_runs, serve_decode_attn = timed(
+        "serve", phase_serve, tt, _kernels.FLASH, params, cfg)
     prefix, reqs = stream
     serve_profile = timed("profile_serve", profile_serve, tt, params, cfg, prefix, reqs)
     timed("serve_int8", phase_serve_int8, tt, params, cfg, stream)
     timed("serve_int4", phase_serve_int4, tt, params, cfg)
     fwd_jit_launches, fwd_jit_profiled = timed(
-        "compiled", phase_compiled, tt, _kernels.KERNELS, params, cfg, tokens, prompt,
+        "compiled", phase_compiled, tt, _kernels.FLASH, params, cfg, tokens, prompt,
         stream, serve_runs, serve_profile)
     del serve_runs
-    spec_launches = timed("spec_generate", phase_spec_generate, tt, _kernels.KERNELS,
+    spec_launches = timed("spec_generate", phase_spec_generate, tt, _kernels.FLASH,
                           params, cfg)
     spec_serve_launches, spec_run, spec_reqs = timed("spec_serve", phase_spec_serve, tt,
-                                                     _kernels.KERNELS, params, cfg)
+                                                     _kernels.FLASH, params, cfg)
     timed("compiled_spec", phase_compiled_spec, tt, params, cfg, spec_run, spec_reqs)
     del spec_run
-    lora_serve_launches = timed("lora_serve", phase_lora_serve, tt, _kernels.KERNELS,
+    lora_serve_launches = timed("lora_serve", phase_lora_serve, tt, _kernels.FLASH,
                                 params, cfg)
     # The 32-layer parameters (32.1 GB) and the training state (~31 GB)
     # are never resident together.
@@ -2777,28 +2958,28 @@ def main() -> int:
     # width, its forward and serving (~24 GB), then its training (~51 GB
     # of state), one at a time.
     moe_params, moe_cfg, moe_fwd_launches = timed("moe_forward", phase_moe_forward, tt,
-                                                  _kernels.KERNELS)
+                                                  _kernels.FLASH)
     moe_serve_launches = timed("moe_decode_serve", phase_moe_decode_serve, tt,
-                               _kernels.KERNELS, moe_params, moe_cfg)
+                               _kernels.FLASH, moe_params, moe_cfg)
     timed("compiled_moe", phase_compiled_moe, tt, moe_params, moe_cfg)
     del moe_params
     gc.collect()
     torch.cuda.empty_cache()
-    moe_train_launches = timed("moe_train", phase_moe_train, tt, _kernels.KERNELS)
+    moe_train_launches = timed("moe_train", phase_moe_train, tt, _kernels.FLASH)
     gc.collect()
     torch.cuda.empty_cache()
 
     state, tcfg, ttokens, step_launches, train_trace, train_ms = timed(
-        "train", phase_train, tt, _kernels.KERNELS)
+        "train", phase_train, tt, _kernels.FLASH)
     timed("profile_train_step", lambda: emit(device_profile(
         "train_step", lambda: tt.train_step(state, ttokens, tcfg, lr=TRAIN_LR))))
-    timed("remat", phase_remat, _kernels.KERNELS, state, tcfg, ttokens)
+    timed("remat", phase_remat, _kernels.FLASH, state, tcfg, ttokens)
     # One ~31 GB training state at a time: the sharded step builds its own.
     del state
     gc.collect()
     torch.cuda.empty_cache()
     lora_launches, lora_trace, lora_ms = timed("lora_train", phase_lora_train, tt,
-                                               _kernels.KERNELS)
+                                               _kernels.FLASH)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2810,17 +2991,17 @@ def main() -> int:
     try:
         timed("dist_world1", phase_dist_world1)
         sharded_launches = timed("sharded_train_world1", phase_sharded_train_world1, tt,
-                                 _kernels.KERNELS, ttokens, train_trace[0])
+                                 _kernels.FLASH, ttokens, train_trace[0])
         gc.collect()
         torch.cuda.empty_cache()
         compiled_train_launches = timed("compiled_train", phase_compiled_train, tt,
-                                        _kernels.KERNELS, ttokens, train_trace, train_ms)
+                                        _kernels.FLASH, ttokens, train_trace, train_ms)
         sharded_lora_launches = timed("sharded_lora_world1", phase_sharded_lora_world1, tt,
-                                      _kernels.KERNELS, lora_trace[0])
+                                      _kernels.FLASH, lora_trace[0])
         gc.collect()
         torch.cuda.empty_cache()
         compiled_lora_launches = timed("compiled_lora", phase_compiled_lora, tt,
-                                       _kernels.KERNELS, lora_trace, lora_ms)
+                                       _kernels.FLASH, lora_trace, lora_ms)
         with ThreadPoolExecutor(max_workers=1) as pool:
             cli = pool.submit(timed, "cli", run_cli)
             tp2_launches = timed("tp2_gloo_cuda", phase_tp2_gloo_cuda, tp2)
@@ -2872,8 +3053,11 @@ def main() -> int:
                                  "sp2_ring": [r[e["name"]] for r in tp2_launches["sp2_ring"]],
                                  **{k: tp2_launches[k][0][e["name"]]
                                     for k in ("sp2_a2a", "pp2", "ep2")}}
+    # one decode step's replay: a launch a layer
+    decode_entry["launches_by_path"] = {"serve_decode_step_replay": (
+        serve_decode_attn["launches"] / serve_decode_attn["decode_steps_replayed"])}
     emit({"phase": "seconds", **seconds})
-    emit({"kernels": entries})
+    emit({"kernels": entries + [decode_entry]})
     print(name, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,7 @@
 """The C interface of the port's CUDA kernels, checked without ``nvcc``.
 
 Each ``tputopo_torch/csrc/*.cu`` exports one ``extern "C" int tputopo_*``
-entry that ``attention._launch`` calls through ctypes.  A change to one side
+entry that ``attention._call`` calls through ctypes.  A change to one side
 only would pass garbage to the kernel, with nothing to catch it on a machine
 without a card.  These tests parse the C declarations and hold them against
 the Python side: the argument types set on the entry, and the values
@@ -20,6 +20,7 @@ from tputopo_torch import attention as att
 REPO = Path(__file__).resolve().parent.parent
 REFERENCE = REPO / "tputopo" / "workloads" / "attention.py"
 SOURCES = sorted(_kernels.CSRC.glob("*.cu"))
+FLASH_SOURCES = sorted(k.source for k in _kernels.FLASH)
 KERNELS = {k.source.name: k for k in _kernels.KERNELS}
 CTYPE_KIND = {"c_void_p": "pointer", "c_int": "int", "c_float": "float"}
 # The C parameter names that differ from the wrappers' tensor names.
@@ -81,7 +82,7 @@ def _wrapper_call(kernel, monkeypatch, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
-@pytest.mark.parametrize("source", SOURCES, ids=lambda s: s.stem)
+@pytest.mark.parametrize("source", FLASH_SOURCES, ids=lambda s: s.stem)
 def test_launch_passes_the_c_parameters_in_order(source, dtype, monkeypatch):
     kernel = KERNELS[source.name]
     args, named, (B, S, N, H) = _wrapper_call(kernel, monkeypatch, dtype)
@@ -99,13 +100,23 @@ def test_launch_passes_the_c_parameters_in_order(source, dtype, monkeypatch):
 
 @pytest.mark.parametrize("source", SOURCES, ids=lambda s: s.stem)
 def test_header_note_names_the_pallas_kernel_it_replaces(source):
+    """A flash source names the Pallas kernel it replaces; a kernel that
+    replaces none (the reference's plain code, which XLA fuses) says so and
+    names the reference function it computes."""
     note = source.read_text().split("\n\n")[0]
     m = re.search(r"Replaces tputopo/workloads/attention\.py:(\w+)", note)
-    assert m, f"{source.name}'s header note names no Pallas kernel"
-    fn = m.group(1)
-    ref = REFERENCE.read_text()
-    assert re.search(rf"^def {fn}\(", ref, re.M), fn
-    assert re.search(rf"pl\.pallas_call\(\s*functools\.partial\(\s*{fn}\b", ref), fn
+    if m is None:
+        m = re.search(r"Replaces no Pallas kernel.*?Computes\s+"
+                      r"tputopo/workloads/(\w+)\.py:(\w+)", note, re.S)
+        assert m, f"{source.name}'s header note names no Pallas kernel, nor says it replaces none"
+        ref = (REPO / "tputopo" / "workloads" / f"{m.group(1)}.py").read_text()
+        assert re.search(rf"^def {m.group(2)}\(", ref, re.M), m.group(2)
+        assert "pallas_call" not in ref
+    else:
+        fn = m.group(1)
+        ref = REFERENCE.read_text()
+        assert re.search(rf"^def {fn}\(", ref, re.M), fn
+        assert re.search(rf"pl\.pallas_call\(\s*functools\.partial\(\s*{fn}\b", ref), fn
     assert "What bounds it on this card" in source.read_text()
 
 
@@ -128,3 +139,51 @@ def test_bf16_tensor_off_a_16_byte_boundary_raises():
     with pytest.raises(ValueError, match="16-byte boundary"):
         att._launch_args(_kernels.FLASH_FWD, {"q": q, "k": k, "v": v}, {}, True,
                          {"o": torch.empty_like(k), "lse": torch.empty(B * N, S)})
+
+
+# ---- the decode-attention entry ---------------------------------------------
+
+def _decode_call(monkeypatch, B=3, T=2, S=300, N=8, KV=2, H=128):
+    """Run the decode wrapper on CPU tensors with ``_call`` replaced by a
+    recorder; returns (the args it passes, tensors by C name, the ints)."""
+    gen = torch.Generator().manual_seed(1)
+    named = {"q": torch.randn((B, T, N, H), generator=gen).to(torch.bfloat16),
+             "ck": torch.randn((B, S, KV, H), generator=gen).to(torch.bfloat16),
+             "cv": torch.randn((B, S, KV, H), generator=gen).to(torch.bfloat16),
+             "pos": torch.tensor([0, S - 1, -1][:B])}
+    seen = {}
+
+    def record(kern, args, device, what):
+        assert kern is _kernels.DECODE_ATTN and device == named["q"].device
+        seen["args"] = args
+
+    monkeypatch.setattr(att, "_call", record)
+    named["out"] = att._decode_attention_cuda(named["q"], named["ck"], named["cv"],
+                                              named["pos"])
+    return seen["args"], named, {"B": B, "T": T, "S": S, "N": N, "KV": KV, "H": H}
+
+
+def test_decode_launch_passes_the_c_parameters_in_order(monkeypatch):
+    args, named, ints = _decode_call(monkeypatch)
+    _, params = c_params(_kernels.DECODE_ATTN.source)
+    kinds = [kind for kind, _ in params[:-1]]
+    assert kinds == ["pointer"] * 7 + ["int"] * 6 + ["float"]
+    names = [name for _, name in params[:-1]]
+    assert names[:5] == ["q", "ck", "cv", "pos", "out"]
+    assert names[7:] == ["B", "T", "S", "N", "KV", "H", "scale"]
+    assert list(_kernels.DECODE_ATTN.ints) == names[7:13]
+    assert list(args[:5]) == [named[n].data_ptr() for n in names[:5]]
+    assert list(args[7:]) == [ints[n] for n in names[7:13]] + [1.0 / ints["H"] ** 0.5]
+    assert named["out"].shape == named["q"].shape and named["out"].dtype == torch.bfloat16
+
+
+def test_decode_scratch_matches_the_sources_split():
+    """The wrapper sizes the per-split scratch from ``DECODE_SPLIT``; the
+    kernel indexes it by its own ``SPLIT``: they must be one number, as
+    must the query and head-dim limits."""
+    src = _kernels.DECODE_ATTN.source.read_text()
+    assert re.search(r"constexpr int SPLIT = (\d+);", src).group(1) == str(att.DECODE_SPLIT)
+    assert re.search(r"constexpr int MAX_Q = (\d+);", src).group(1) == str(
+        att.DECODE_MAX_QUERIES)
+    assert re.search(r"constexpr int HEAD_DIM = (\d+);", src).group(1) == str(
+        att.DECODE_HEAD_DIM)

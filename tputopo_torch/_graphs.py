@@ -144,8 +144,9 @@ class _Entry(NamedTuple):
 class Programs:
     """The captured programs of one owner: graphs by key, one shared graph
     memory pool, and counts (``captures`` and ``replays`` per program
-    name, ``capture_seconds``).  With ``latest_only``, one graph per key
-    less the bound trees' signature: other bound storage replaces it."""
+    name, ``capture_seconds``; the kernels' ``launches``).  With
+    ``latest_only``, one graph per key less the bound trees' signature:
+    other bound storage replaces it."""
 
     def __init__(self, latest_only: bool = False) -> None:
         self.latest_only = latest_only
@@ -153,6 +154,9 @@ class Programs:
         self.pool = None
         self.captures: collections.Counter = collections.Counter()
         self.replays: collections.Counter = collections.Counter()
+        # Kernel name -> launches its replays ran (``Kernel.launches`` counts
+        # them process-wide).
+        self.launches: collections.Counter = collections.Counter()
         self.capture_seconds = 0.0
         # The owner's :class:`~.obs.Tracer`, or None: each call then records
         # a host span ``dispatch`` (entry to the launch) and a device span
@@ -224,6 +228,7 @@ class Programs:
         self.replays[name] += 1
         for kernel, n in entry.launches.items():
             kernel.launches += n
+            self.launches[kernel.name] += n
         return entry.outputs
 
     def _capture(self, name, body, device, inputs, mutated, generator,

@@ -39,12 +39,16 @@ def _nvcc() -> str:
                        "the CUDA toolkit is needed to build the port's kernels")
 
 
+FLASH_INTS = ("B", "S", "N", "H", "causal", "dtype")
+
+
 class Kernel:
     """One ``csrc`` source, its built library and its launch count.
 
     The source's C entry ``tputopo_<name>`` takes ``n_ptrs`` pointers (the
-    tensors), then B, S, N, H, causal and dtype as ints, the softmax scale
-    as a float and the stream (:attr:`argtypes`).
+    tensors), then the ints named by ``ints`` (the flash kernels' B, S, N,
+    H, causal and dtype by default), the softmax scale as a float and the
+    stream (:attr:`argtypes`).
     ``launches`` is a plain integer that the kernel's wrapper raises by
     one where it launches the kernel, and nowhere else, so a run can show
     that its main path went through the kernel.  A launch that a CUDA
@@ -52,10 +56,12 @@ class Kernel:
     counts it in ``captured`` instead, and each replay adds the launches
     its capture recorded to ``launches`` (:mod:`._graphs`)."""
 
-    def __init__(self, name: str, source: str, n_ptrs: int):
+    def __init__(self, name: str, source: str, n_ptrs: int,
+                 ints: tuple[str, ...] = FLASH_INTS):
         self.name = name
         self.source = CSRC / source
         self.n_ptrs = n_ptrs
+        self.ints = ints
         self.symbol = f"tputopo_{name}"
         self.launches = 0
         self.captured = 0
@@ -66,7 +72,7 @@ class Kernel:
 
     @property
     def argtypes(self) -> list:
-        return ([ctypes.c_void_p] * self.n_ptrs + [ctypes.c_int] * 6
+        return ([ctypes.c_void_p] * self.n_ptrs + [ctypes.c_int] * len(self.ints)
                 + [ctypes.c_float, ctypes.c_void_p])
 
     def library_path(self) -> Path:
@@ -113,7 +119,11 @@ class Kernel:
 FLASH_FWD = Kernel("flash_fwd", "flash_fwd.cu", n_ptrs=5)          # q k v o lse
 FLASH_DQ = Kernel("flash_bwd_dq", "flash_bwd_dq.cu", n_ptrs=7)     # q k v do lse d dq
 FLASH_DKV = Kernel("flash_bwd_dkv", "flash_bwd_dkv.cu", n_ptrs=8)  # q k v do lse d dk dv
-KERNELS = (FLASH_FWD, FLASH_DQ, FLASH_DKV)
+FLASH = (FLASH_FWD, FLASH_DQ, FLASH_DKV)
+# q ck cv pos out part_acc part_ml
+DECODE_ATTN = Kernel("decode_attn", "decode_attn.cu", n_ptrs=7,
+                     ints=("B", "T", "S", "N", "KV", "H"))
+KERNELS = (*FLASH, DECODE_ATTN)
 
 
 def build_all() -> None:

@@ -11,6 +11,11 @@ function, with the same dtype casts, that the tests hold against the JAX
 package and that ``chip_smoke.py`` holds the kernels against on the card.
 Nothing falls back: a CUDA call that cannot launch its kernel raises.
 
+The serving step's attention over its bf16 KV cache has a kernel too,
+``csrc/decode_attn.cu`` (:func:`_decode_attention_cuda`), where the
+reference leaves plain einsums to XLA; ``serving._attend_ragged`` is its
+plain version and decides which calls take it.
+
 :func:`flash_attention` is differentiable through one
 ``torch.autograd.Function``.  Its forward saves ``(q, k, v, o, lse)`` as the
 reference's ``_flash_vjp_fwd`` does; its backward is :func:`flash_backward`,
@@ -166,23 +171,28 @@ def _launch_args(kernel: _kernels.Kernel, tensors: dict, rows: dict, causal: boo
     return (*ptrs, B, S, N, H, int(causal), _DTYPE_CODE[q.dtype], 1.0 / (H ** 0.5))
 
 
-def _launch(kernel: _kernels.Kernel, tensors: dict, rows: dict, causal: bool,
-            outputs: dict):
-    """Launch ``kernel`` on the current stream and count the launch: in
-    ``launches``, or in ``captured`` while a CUDA graph capture records it
-    (its replays count it, :mod:`._graphs`)."""
-    args = _launch_args(kernel, tensors, rows, causal, outputs)
-    q = tensors["q"]
-    with torch.cuda.device(q.device):
+def _call(kernel: _kernels.Kernel, args: tuple, device, what: str) -> None:
+    """Call ``kernel``'s C entry with ``args`` on the current stream of
+    ``device``, raise if it returns an error (``what`` names the call), and
+    count the launch: in ``launches``, or in ``captured`` while a CUDA graph
+    capture records it (its replays count it, :mod:`._graphs`)."""
+    with torch.cuda.device(device):
         err = kernel.entry()(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        B, S, N, H = q.shape
-        raise RuntimeError(f"{kernel.name} kernel launch failed: cudaError {err} "
-                           f"(B={B}, S={S}, N={N}, H={H}, {q.dtype})")
-    if _graphs.capturing(q.device):
+        raise RuntimeError(f"{kernel.name} kernel launch failed: cudaError {err} ({what})")
+    if _graphs.capturing(device):
         kernel.captured += 1
     else:
         kernel.launches += 1
+
+
+def _launch(kernel: _kernels.Kernel, tensors: dict, rows: dict, causal: bool,
+            outputs: dict):
+    """Launch a flash kernel on the current stream (:func:`_call`)."""
+    args = _launch_args(kernel, tensors, rows, causal, outputs)
+    q = tensors["q"]
+    B, S, N, H = q.shape
+    _call(kernel, args, q.device, f"B={B}, S={S}, N={N}, H={H}, {q.dtype}")
 
 
 def _flash_forward_lse_cuda(q, k, v, *, causal):
@@ -209,6 +219,76 @@ def _flash_dkv_cuda(q, k, v, do, lse, d, *, causal):
     _launch(_kernels.FLASH_DKV, {"q": q, "k": k, "v": v, "do": do},
             {"lse": lse, "d": d}, causal, {"dk": dk, "dv": dv})
     return dk, dv
+
+
+# ---- decode attention over a bf16 cache -------------------------------------
+#
+# ``csrc/decode_attn.cu`` computes the serving step's cache attention,
+# ``serving._attend_ragged``, whose einsums are its plain version.
+
+DECODE_SPLIT = 256              # cache positions per block: ``SPLIT`` in the source
+DECODE_MAX_QUERIES = 64         # T * group queries per KV head: ``MAX_Q``
+DECODE_HEAD_DIM = 128           # ``HEAD_DIM``
+
+
+def decode_kernel_fits(T: int, group: int, H: int) -> bool:
+    """Whether the decode-attention kernel takes T queries per slot, GQA
+    ``group`` and head dim ``H``."""
+    return T * group <= DECODE_MAX_QUERIES and H == DECODE_HEAD_DIM
+
+
+def _decode_launch_args(q, ck, cv, pos, outputs: dict) -> tuple:
+    """Check the arguments of ``csrc/decode_attn.cu``'s C entry and return
+    them, the stream aside: the pointers of q [B, T, N, H], the cache layer
+    ck, cv [B, S, KV, H] (all bf16), pos [B] int64 and ``outputs`` (out,
+    part_acc, part_ml), then B, T, S, N, KV, H and the softmax scale."""
+    B, T, N, H = q.shape
+    if ck.dim() != 4 or ck.shape[0] != B or ck.shape[3] != H or cv.shape != ck.shape:
+        raise ValueError(f"decode attention takes a cache layer [{B}, S, KV, {H}] for q "
+                         f"{tuple(q.shape)}, got {tuple(ck.shape)} and {tuple(cv.shape)}")
+    S, KV = ck.shape[1], ck.shape[2]
+    if N % KV:
+        raise ValueError(f"{N} query heads are not a multiple of {KV} KV heads")
+    if not decode_kernel_fits(T, N // KV, H):
+        raise ValueError(f"decode attention takes T * group <= {DECODE_MAX_QUERIES} and "
+                         f"head dim {DECODE_HEAD_DIM}, got T={T}, group={N // KV}, H={H}")
+    for name, t in {"q": q, "ck": ck, "cv": cv, **outputs}.items():
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and start on a 16-byte boundary")
+    for name, t in {"q": q, "ck": ck, "cv": cv, "out": outputs["out"]}.items():
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"decode attention takes bfloat16, {name} is {t.dtype}")
+    if (pos.device != q.device or pos.dtype != torch.int64 or pos.shape != (B,)
+            or not pos.is_contiguous()):
+        raise ValueError(f"pos must be a contiguous int64 [{B}] tensor on {q.device}")
+    n_splits, Q = -(-S // DECODE_SPLIT), T * (N // KV)
+    want = {"out": (q.shape, torch.bfloat16),
+            "part_acc": ((B, KV, n_splits, Q, H), torch.float32),
+            "part_ml": ((B, KV, n_splits, Q, 2), torch.float32)}
+    for name, (shape, dtype) in want.items():
+        t = outputs[name]
+        if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype} {tuple(shape)}")
+    ptrs = [t.data_ptr() for t in (q, ck, cv, pos, *(outputs[n] for n in want))]
+    return (*ptrs, B, T, S, N, KV, H, 1.0 / (H ** 0.5))
+
+
+def _decode_attention_cuda(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                           pos: torch.Tensor) -> torch.Tensor:
+    """Launch ``csrc/decode_attn.cu``: q [B, T, N, H] against one layer's
+    bf16 cache ck, cv [B, S, KV, H], read in place; slot b's query t sits
+    at pos[b] + t -> out [B, T, N, H] bf16, as ``serving._attend_ragged``."""
+    B, T, N, H = q.shape
+    S, KV = ck.shape[1], ck.shape[2]
+    splits = (B, KV, -(-S // DECODE_SPLIT), T * (N // KV))
+    outputs = {"out": torch.empty_like(q),
+               "part_acc": torch.empty((*splits, H), dtype=torch.float32, device=q.device),
+               "part_ml": torch.empty((*splits, 2), dtype=torch.float32, device=q.device)}
+    _call(_kernels.DECODE_ATTN, _decode_launch_args(q, ck, cv, pos, outputs), q.device,
+          f"B={B}, T={T}, S={S}, N={N}, KV={KV}, H={H}")
+    return outputs["out"]
 
 
 # ---- public API -----------------------------------------------------------

@@ -55,7 +55,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from tputopo_torch import _graphs, obs
+from tputopo_torch import _graphs, _kernels, attention, obs
 from tputopo_torch.decode import KVCache, _block_hidden, _select, serving_ffn
 from tputopo_torch.model import (ModelConfig, _check_supported, _layer,
                                  _rmsnorm, _rope_tables, check_token_ids,
@@ -395,6 +395,24 @@ def _write_kv_at(cache_l: torch.Tensor, kv: torch.Tensor,
     cache_l[torch.arange(B, device=pos.device)[:, None], idx] = kv
 
 
+# The most queries per slot that go to the decode-attention kernel: the
+# decode step and the speculative draft (1), the verify block (gamma + 1).
+# Wider calls, the prefill chunks, keep the einsums.
+DECODE_KERNEL_MAX_T = 16
+
+
+def _decode_kernel_takes(q: torch.Tensor, ck: torch.Tensor,
+                         ck_s: torch.Tensor | None, group: int) -> bool:
+    """Whether :func:`_attend_ragged` sends the call to the decode-attention
+    kernel (``csrc/decode_attn.cu``): CUDA tensors, a bf16 cache (no int8
+    scales) and bf16 queries, at most :data:`DECODE_KERNEL_MAX_T` queries per
+    slot, and a group and head dim the kernel takes."""
+    T, H = q.shape[1], q.shape[3]
+    return (q.device.type == "cuda" and ck_s is None
+            and ck.dtype == q.dtype == torch.bfloat16 and T <= DECODE_KERNEL_MAX_T
+            and attention.decode_kernel_fits(T, group, H))
+
+
 def _attend_ragged(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
                    pos: torch.Tensor, group: int,
                    ck_s: torch.Tensor | None = None,
@@ -402,7 +420,20 @@ def _attend_ragged(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     """T queries per slot, each slot at its OWN base position: q
     [B, T, N, H] against the cache [B, S, KV, H]; slot b's query t sits at
     pos[b] + t and attends cache positions <= it.  The grouped-GQA einsums
-    of :func:`.decode._attend_cached`, int8 scale folds included."""
+    of :func:`.decode._attend_cached`, int8 scale folds included, or, where
+    :func:`_decode_kernel_takes` the call, the decode-attention kernel,
+    which reads the cache in place and only up to each slot's position."""
+    if _decode_kernel_takes(q, ck, ck_s, group):
+        return attention._decode_attention_cuda(q, ck, cv, pos)
+    return _attend_ragged_plain(q, ck, cv, pos, group, ck_s, cv_s)
+
+
+def _attend_ragged_plain(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                         pos: torch.Tensor, group: int,
+                         ck_s: torch.Tensor | None = None,
+                         cv_s: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`_attend_ragged` as the reference's einsums over the whole
+    cache, masked with -1e30: the decode-attention kernel's plain version."""
     B, T, N, H = q.shape
     KV = ck.shape[2]
     scale = 1.0 / (H ** 0.5)
@@ -689,6 +720,8 @@ class ServingEngine:
         if tracer is not None:
             tracer.carry("engine", lambda: dict(self.metrics))
             tracer.carry("programs", self.programs.counts)
+            tracer.carry("decode_attention", lambda: {
+                "launches": self.programs.launches[_kernels.DECODE_ATTN.name]})
 
     def _dev(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, dtype=np.int64), device=self.device)
