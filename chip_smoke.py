@@ -357,6 +357,14 @@ MOE_KEPT_TOL = TOL[torch.bfloat16]
 # one H100), so the kept-token check also runs at 1.0 (capacity 512), where
 # seats do drop.
 MOE_TIGHT_CF = 1.0
+# The routed expert layer of serving (moe.moe_mlp_routed: sort, grouped bf16
+# GEMMs, combine) on layer 0 of the MoE weights: a decode step of one slot
+# and of chat's 32 slots, a prefill chunk and a 512-token bucket, the last
+# expert given no pair.  Its bf16 activations against the loop's f32 ones
+# (moe.moe_mlp_reference, the same bf16-rounded tables): four bf16
+# roundings in a row, held at 2% of the largest output, the CPU tests' bound.
+MOE_GROUPED_TOKENS = (1, 32, 128, 512)
+MOE_GROUPED_REL = 2e-2
 # The conv classifier on the card in bf16: the reference CLI's run.
 VISION_STEPS, VISION_BATCH = 20, 64
 # The compiled programs (CUDA graphs, tputopo_torch/_graphs.py): each engine
@@ -969,6 +977,7 @@ def phase_serve(tt, kernels, params, cfg) -> tuple:
     traced = tracer.export()
     decode_attn = {"launches": traced["decode_attention"]["launches"],
                    "decode_steps_replayed": traced["programs"]["replays"].get("decode_step", 0)}
+    grouped_launches = traced["grouped_mm"]["launches"]
     peak = torch.cuda.max_memory_allocated() / 1e9
     a, b = runs
     check(a["rows"] == b["rows"], "serve: the two runs gave different tokens")
@@ -978,6 +987,8 @@ def phase_serve(tt, kernels, params, cfg) -> tuple:
     check(decode_attn["decode_steps_replayed"] > 0 and decode_attn["launches"]
           == cfg.n_layers * decode_attn["decode_steps_replayed"],
           f"serve: decode_attn launches {decode_attn}, want {cfg.n_layers} a replayed step")
+    check(grouped_launches == 0 and "moe" not in traced,
+          f"serve: the dense engine ran the routed expert layer: {grouped_launches} launches")
     vs = picks_vs_forward(tt, params, cfg, b["rows"], b["plens"])
     rec = {"phase": "serve", "model": "llama3_8b", "layers": cfg.n_layers,
            "weights": "f32 masters, bf16 compute", "kv": "bf16",
@@ -990,7 +1001,7 @@ def phase_serve(tt, kernels, params, cfg) -> tuple:
            "ttft_p50_s": [a["ttft_p50_s"], b["ttft_p50_s"]],
            "ttft_p95_s": [a["ttft_p95_s"], b["ttft_p95_s"]],
            "metrics": b["metrics"], "identical_runs": True, "launches": launches,
-           "decode_attn_traced": decode_attn,
+           "decode_attn_traced": decode_attn, "grouped_mm_launches": grouped_launches,
            "peak_mem_gb": peak, "programs": [a["programs"], b["programs"]],
            **vs, "bound_max_gap": GEN_GAP,
            "ops_per_decode_step": ops_per_decode_step(params, cfg),
@@ -2130,25 +2141,29 @@ def phase_moe_forward(tt, kernels) -> tuple:
 @contextlib.contextmanager
 def router_logits(record: list):
     """Within the block, every MoE routing (the capacity path's ``_route``
-    and the drop-free mixture of decode and serving) appends its router
-    logits [B, T, E] (f32) to ``record``, in call order."""
+    and the drop-free mixture of decode and serving, the loop's and the
+    routed layer's) appends its router logits [B, T, E] (f32) to
+    ``record``, in call order."""
     from tputopo_torch import moe
 
-    route, mixture = moe._route, moe.moe_mlp_reference
+    route, mixture, grouped = moe._route, moe.moe_mlp_reference, moe.moe_mlp_routed
 
     def logged_route(x32, router, m, plan=None):
         record.append(x32 @ router.float())
         return route(x32, router, m, plan)
 
-    def logged_mixture(x, p, cfg):
-        record.append(x.float() @ p["router"].float())
-        return mixture(x, p, cfg)
+    def logged(layer):
+        def run(x, p, cfg, **kw):
+            record.append(x.float() @ p["router"].float())
+            return layer(x, p, cfg, **kw)
+        return run
 
-    moe._route, moe.moe_mlp_reference = logged_route, logged_mixture
+    moe._route, moe.moe_mlp_reference = logged_route, logged(mixture)
+    moe.moe_mlp_routed = logged(grouped)
     try:
         yield record
     finally:
-        moe._route, moe.moe_mlp_reference = route, mixture
+        moe._route, moe.moe_mlp_reference, moe.moe_mlp_routed = route, mixture, grouped
 
 
 def decode_vs_forward(tt, params, cfg, roomy, prompt, new) -> dict:
@@ -2209,6 +2224,100 @@ def moe_picks_vs_forward(tt, params, cfg, rows, plens, delta: float) -> dict:
             "vs_forward_max_gap_all": gaps.max().item(), "vs_forward_top1": hits / total}
 
 
+def routed_rows(x, p, cfg):
+    """The routed layer's first steps (moe.moe_mlp_routed) on x [1, T, D]:
+    (the pairs' rows sorted by expert [T k, D] bf16, the segments' ends,
+    the pairs per expert)."""
+    from tputopo_torch import moe
+
+    x2 = x.reshape(-1, x.shape[-1])
+    idx = moe._top_k_gates(x2.float(), p["router"], cfg.moe)[1].reshape(-1)
+    order = torch.sort(idx, stable=True).indices
+    load = torch.bincount(idx, minlength=cfg.moe.n_experts)
+    return (x2.to(torch.bfloat16).index_select(0, order // cfg.moe.top_k),
+            load.cumsum(0).to(torch.int32), load)
+
+
+def grouped_bound_ms(pairs: int, hit: int, D: int, F: int, casts: int = 0) -> float:
+    """The least time of the three grouped expert products over ``pairs``
+    rows: 6 D F flops a pair against the bf16 tables of the ``hit`` experts
+    read once and the rows in and out, at the bf16 peak and the HBM
+    bandwidth; with ``casts`` experts, also their f32 masters read and the
+    bf16 tables written (the layer as serving calls it)."""
+    flops = 6.0 * D * F * pairs
+    nbytes = 2.0 * (3 * D * F * hit + (3 * D + 3 * F) * pairs) + 18.0 * D * F * casts
+    return max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+
+
+def phase_moe_grouped(tt, params, cfg) -> dict:
+    """The routed expert layer (grouped GEMMs over the routed pairs) on
+    layer 0 of the MoE weights at each of MOE_GROUPED_TOKENS tokens, the
+    last expert given no pair: against the loop over the experts within
+    MOE_GROUPED_REL, two calls bitwise equal, three grouped GEMM launches a
+    call; then the grouped GEMMs alone, the layer and the loop timed as a
+    CUDA graph replays them, against their byte and flop bounds."""
+    from tputopo_torch import _kernels, moe
+
+    t_phase = time.perf_counter()
+    m, D, F = cfg.moe, cfg.d_model, cfg.d_ff
+    p = {k: v[0] for k, v in params["layers"]["moe"].items()}
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    v = torch.randn(D, generator=gen, device="cuda")
+    # x carries v, so the last expert's logit sits ~40 below the others'
+    p["router"] = p["router"].clone()
+    p["router"][:, -1] -= 40.0 * v / v.norm() ** 2
+    inputs = {T: (torch.randn((1, T, D), generator=gen, device="cuda") + v).bfloat16()
+              for T in MOE_GROUPED_TOKENS}
+    cases = []
+    for T, x in inputs.items():
+        _, _, load = routed_rows(x, p, cfg)
+        before = _kernels.GROUPED_MM.launches
+        got = moe.moe_mlp_routed(x, p, cfg)
+        again = moe.moe_mlp_routed(x, p, cfg)
+        loop = moe.moe_mlp_reference(x, p, cfg)
+        torch.cuda.synchronize()
+        err = (got.float() - loop.float()).abs().max().item()
+        rec = {"phase": "moe_grouped_vs_loop", "tokens": T, "load": load.tolist(),
+               "max_abs_err": err, "max_rel_err": err / loop.float().abs().max().item(),
+               "repeat_bitwise": bool(torch.equal(got, again)),
+               "launches": _kernels.GROUPED_MM.launches - before}
+        emit(rec)
+        check(int(load[-1]) == 0, f"moe_grouped: the last expert got pairs: {rec}")
+        check(rec["max_rel_err"] <= MOE_GROUPED_REL, f"moe_grouped: off the loop: {rec}")
+        check(rec["repeat_bitwise"], f"moe_grouped: two calls differ: {rec}")
+        check(rec["launches"] == 6, f"moe_grouped: {rec['launches']} launches, want 6")
+        cases.append(rec)
+    tables = [p[n].to(torch.bfloat16) for n in moe.EXPERT_TABLES]
+    timing = {}
+    for T, x in inputs.items():
+        rows, ends, load = routed_rows(x, p, cfg)
+        h = torch.zeros((rows.shape[0], F), dtype=torch.bfloat16, device="cuda")
+
+        def gemms():
+            moe.grouped_mm(rows, tables[0], ends)
+            moe.grouped_mm(rows, tables[1], ends)
+            moe.grouped_mm(h, tables[2], ends)
+
+        hit = int((load > 0).sum())
+        slow = 4 if T >= 128 else 10
+        timing[T] = {"pairs": rows.shape[0], "experts_hit": hit,
+                     "grouped_gemms_ms": graph_ms(gemms),
+                     "grouped_gemms_bound_ms": grouped_bound_ms(rows.shape[0], hit, D, F),
+                     "layer_ms": graph_ms(lambda x=x: moe.moe_mlp_routed(x, p, cfg), slow),
+                     "layer_bound_ms": grouped_bound_ms(rows.shape[0], hit, D, F,
+                                                        casts=m.n_experts),
+                     "loop_ms": graph_ms(lambda x=x: moe.moe_mlp_reference(x, p, cfg), slow)}
+        t = timing[T]
+        t["grouped_gemms_share_of_bound"] = t["grouped_gemms_bound_ms"] / t["grouped_gemms_ms"]
+        t["layer_share_of_bound"] = t["layer_bound_ms"] / t["layer_ms"]
+    del tables
+    rec = {"phase": "moe_grouped", "model": "mixtral_8x7b", "layer": 0,
+           "tolerance_rel": MOE_GROUPED_REL, "cases": cases, "timing": timing,
+           "card": card(), "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    return rec
+
+
 def phase_moe_decode_serve(tt, kernels, params, cfg) -> dict:
     """On the MoE weights: greedy generate (decode's routing replayed into
     the drop-free forward, the same weights at capacity factor 4, decode's
@@ -2232,8 +2341,16 @@ def phase_moe_decode_serve(tt, kernels, params, cfg) -> dict:
     prefix, reqs = serve_stream(cfg.vocab_size, 7, MOE_SERVE_REQUESTS, SERVE_PROMPT,
                                 SERVE_NEW, 3)
     reset(kernels)
-    run = run_engine(tt, params, cfg, prefix, reqs)
+    tracer = tt.obs.Tracer()
+    run = run_engine(tt, params, cfg, prefix, reqs, make=lambda cb: tt.ServingEngine(
+        params, cfg, on_tokens=cb, tracer=tracer, **SERVE_ENGINE))
     launches["serve"] = launch_counts(kernels)
+    traced = tracer.export()
+    # every replay of a program that runs the layers (all but copy_prefix)
+    # runs the routed layer in each layer: three grouped GEMMs
+    layered = sum(n for k, n in traced["programs"]["replays"].items() if k != "copy_prefix")
+    routed = {"grouped_mm_launches": traced["grouped_mm"]["launches"],
+              "want": 3 * cfg.n_layers * layered, **traced["moe"]}
     check_rows(run["rows"], run["plens"], reqs, prefix, cfg.vocab_size, "moe_serve")
     vs = moe_picks_vs_forward(tt, params, roomy, run["rows"], run["plens"],
                               gen["router_logit_q999_diff"])
@@ -2253,7 +2370,8 @@ def phase_moe_decode_serve(tt, kernels, params, cfg) -> dict:
                                                   "router_logit_max_diff",
                                                   "router_logit_q999_diff")},
            "serve": {k: run[k] for k in ("wall_s", "generated", "tokens_per_s",
-                                         "ttft_p50_s", "ttft_p95_s", "metrics")} | vs,
+                                         "ttft_p50_s", "ttft_p95_s", "metrics")} | vs
+           | {"routed_layer": routed},
            "serve_int8": {"requests": len(q_reqs)} | {
                k: qrun[k] for k in ("wall_s", "generated", "tokens_per_s")} | qvs,
            "reference": "forward at capacity factor E / top_k (drop-free); generate's "
@@ -2272,6 +2390,12 @@ def phase_moe_decode_serve(tt, kernels, params, cfg) -> dict:
           f"MoE int8 pick off its tree's forward: {rec}")
     check(all(v == 0 for k in ("serve", "serve_int8") for v in launches[k].values()),
           f"MoE serving launched a flash kernel: {launches}")
+    # the counts grow on the device inside the replays
+    check(routed["grouped_mm_launches"] == routed["want"] > 0
+          and routed["calls"] * m.top_k <= routed["pairs"]
+          and routed["experts_hit"] <= routed["calls"] * m.n_experts
+          and routed["device_ns"] > 0,
+          f"MoE serving: the routed layer's launches or counts are off: {routed}")
     return launches["serve"]
 
 
@@ -2959,6 +3083,7 @@ def main() -> int:
     # of state), one at a time.
     moe_params, moe_cfg, moe_fwd_launches = timed("moe_forward", phase_moe_forward, tt,
                                                   _kernels.FLASH)
+    timed("moe_grouped", phase_moe_grouped, tt, moe_params, moe_cfg)
     moe_serve_launches = timed("moe_decode_serve", phase_moe_decode_serve, tt,
                                _kernels.FLASH, moe_params, moe_cfg)
     timed("compiled_moe", phase_compiled_moe, tt, moe_params, moe_cfg)

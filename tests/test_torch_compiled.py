@@ -221,7 +221,9 @@ def test_build_and_copy_prefix_match_reference(weights, kv, P):
                                            rtol=WINDOW_TOL, atol=WINDOW_TOL)
     # The copy, from the same prefix rows on both sides: exact.
     a = _state_arrays(40 + P, kv)
-    pre_np = [None if b is None else b.numpy() for b in pres[0]]
+    # the reference's cache fields (the port's adds ``routes``, None here)
+    pre_np = [None if b is None else b.numpy() for b in pres[0]][:len(jd.KVCache._fields)]
+    assert pres[0].routes is None
     for slot in (0, 2):
         ref = js.copy_prefix_jit(_jax_state(a), jd.KVCache(
             *(None if b is None else jnp.asarray(b) for b in pre_np)), jnp.int32(slot))

@@ -26,7 +26,11 @@ bakes in:
   writes where they lie, and the value of every non-tensor leaf (a LoRA
   scale): a new params tree or a new state recaptures, and a replay never
   reads a stale pointer;
-- the device and the sampling generator, if any.
+- the device and the sampling generator, if any;
+- what a body reads beyond its arguments and bound trees (:data:`AMBIENT`:
+  the expert layer's counts while a tracer counts), so that a program
+  captured without them is not replayed where they are read, nor the
+  reverse.
 
 An engine's programs keep every graph they capture: its bound trees live
 as long as it does.  The process-wide default of the ``*_jit`` calls that
@@ -72,6 +76,12 @@ import torch
 import torch.distributed as dist
 
 from tputopo_torch import _kernels
+
+
+# Callables returning what the bodies read besides their arguments and
+# bound trees (a tree of tensors, or None); its signature joins every
+# capture's key.  A module whose body code reads such state registers here.
+AMBIENT: list[Callable[[], object]] = []
 
 
 def capturing(device) -> bool:
@@ -196,7 +206,8 @@ class Programs:
         bound_sig = signature(bound)
         key = (name, static, device,
                tuple((tuple(t.shape), t.dtype) for t in inputs),
-               None if generator is None else id(generator))
+               None if generator is None else id(generator),
+               tuple(signature(read()) for read in AMBIENT))
         if not self.latest_only:
             key += (bound_sig,)
         entry = self._graphs.get(key)
@@ -257,7 +268,7 @@ class Programs:
             graph = torch.cuda.CUDAGraph()
             if generator is not None:
                 graph.register_generator_state(generator)
-            before = {k: k.captured for k in _kernels.KERNELS}
+            before = {k: k.captured for k in _kernels.COUNTED}
             with torch.cuda.graph(graph, pool=self.pool):
                 outputs = body(*static_in)
         launches = {k: k.captured - n for k, n in before.items() if k.captured != n}

@@ -124,6 +124,30 @@ FLASH = (FLASH_FWD, FLASH_DQ, FLASH_DKV)
 DECODE_ATTN = Kernel("decode_attn", "decode_attn.cu", n_ptrs=7,
                      ints=("B", "T", "S", "N", "KV", "H"))
 KERNELS = (*FLASH, DECODE_ATTN)
+# Instrumentation, not one of the port's kernels: it computes nothing of
+# the reference's and replaces no kernel of it, so it lives apart from them
+# (``csrc/obs``).  acc, the running sum of the GPU's global timer that a
+# tracer reads (the routed expert layer's device time, :mod:`.moe`).
+DEVICE_CLOCK = Kernel("device_clock", "obs/device_clock.cu", n_ptrs=1, ints=("sign",))
+
+
+class LibraryCall:
+    """A kernel the port launches through PyTorch's own library rather
+    than from ``csrc``, counted as a :class:`Kernel`'s launches are: the
+    caller raises ``launches`` by one a launch, or ``captured`` while a CUDA
+    graph capture records it, and each replay adds what its capture
+    recorded (:mod:`._graphs`)."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.launches = 0
+        self.captured = 0
+
+
+# torch._grouped_mm, the routed expert layer's products (:mod:`.moe`)
+GROUPED_MM = LibraryCall("grouped_mm")
+# Everything whose launches a capture counts.
+COUNTED = (*KERNELS, GROUPED_MM)
 
 
 def build_all() -> None:

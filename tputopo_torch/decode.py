@@ -19,9 +19,12 @@ Decoding policies: greedy (temperature 0, the default) and temperature
 sampling with optional top-k, drawn from a caller's ``torch.Generator``.
 :func:`generate_jit`, the reference's compiled ``generate``, is one
 CUDA-graph capture of the whole loop (:mod:`._graphs`).
-The FFN of an MoE config is the drop-free mixture
-(:func:`~.moe.moe_mlp_reference`), the reference's serving semantics: the
-capacity-dispatch training path would drop tokens during a prefill.
+The FFN of an MoE config is the drop-free mixture, the reference's
+serving semantics (the capacity-dispatch training path would drop tokens
+during a prefill): on CUDA with raw expert tables and bfloat16 compute the
+routed layer (:func:`~.moe.moe_mlp_routed`, grouped GEMMs over the routed
+pairs), otherwise the loop over the experts
+(:func:`~.moe.moe_mlp_reference`: quantized tables, the CPU).
 """
 
 from __future__ import annotations
@@ -45,23 +48,35 @@ class KVCache(NamedTuple):
     # [L, B, S_max, KV, 1] f32.  None for a bf16 cache.
     k_scale: torch.Tensor | None = None
     v_scale: torch.Tensor | None = None
+    # An MoE config's expert choices, kept where asked for: the top-k expert
+    # ids [L, B, S_max, k] int8 of the token at each position, written
+    # beside its K/V by the serving bodies (-1 where none was).
+    routes: torch.Tensor | None = None
 
     @staticmethod
     def create(config: ModelConfig, batch: int, max_len: int, *,
-               device=None) -> "KVCache":
+               device=None, routes: bool = False) -> "KVCache":
+        """Zeroed buffers; with ``routes`` (an MoE config), the expert ids'
+        buffer too."""
         c = config
         if c.kv_dtype not in ("bf16", "int8"):
             raise ValueError(f"unknown kv_dtype {c.kv_dtype!r}")
+        if routes and c.moe is None:
+            raise ValueError("routes are kept for an MoE config only")
         dev = resolve_device(device)
         shape = (c.n_layers, batch, max_len, c.n_kv_heads, c.head_dim)
+        picks = (torch.full((c.n_layers, batch, max_len, c.moe.top_k), -1,
+                            dtype=torch.int8, device=dev) if routes else None)
         if c.kv_dtype == "int8":
             sshape = shape[:-1] + (1,)
             return KVCache(k=torch.zeros(shape, dtype=torch.int8, device=dev),
                            v=torch.zeros(shape, dtype=torch.int8, device=dev),
                            k_scale=torch.zeros(sshape, dtype=torch.float32, device=dev),
-                           v_scale=torch.zeros(sshape, dtype=torch.float32, device=dev))
+                           v_scale=torch.zeros(sshape, dtype=torch.float32, device=dev),
+                           routes=picks)
         return KVCache(k=torch.zeros(shape, dtype=c.compute_dtype, device=dev),
-                       v=torch.zeros(shape, dtype=c.compute_dtype, device=dev))
+                       v=torch.zeros(shape, dtype=c.compute_dtype, device=dev),
+                       routes=picks)
 
 
 def _store_kv(buf: torch.Tensor, sbuf: torch.Tensor | None, kv: torch.Tensor,
@@ -150,13 +165,19 @@ def _block_hidden(params: dict, config: ModelConfig, tokens: torch.Tensor,
     return x
 
 
-def serving_ffn(h: torch.Tensor, layer: dict, config: ModelConfig) -> torch.Tensor:
+def serving_ffn(h: torch.Tensor, layer: dict, config: ModelConfig, *,
+                picks: bool = False):
     """One layer's FFN on the serving paths: the dense SwiGLU, or the
-    drop-free expert mixture of an MoE config."""
+    drop-free expert mixture of an MoE config, by the routed layer where
+    :func:`~.moe.routed_takes` it and by the loop over the experts
+    elsewhere.  With ``picks`` (MoE only), (output, the top-k expert ids
+    [B, T, k])."""
     if config.moe is not None:
-        from tputopo_torch.moe import moe_mlp_reference
+        from tputopo_torch import moe
 
-        return moe_mlp_reference(h, layer["moe"], config)
+        if moe.routed_takes(h, layer["moe"], config):
+            return moe.moe_mlp_routed(h, layer["moe"], config, picks=picks)
+        return moe.moe_mlp_reference(h, layer["moe"], config, picks=picks)
     gate = F.silu(qdot(h, layer["w_gate"]))
     return qdot(gate * qdot(h, layer["w_up"]), layer["w_down"])
 

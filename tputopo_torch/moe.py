@@ -26,16 +26,30 @@ positions that continue across ``sp`` chunks (an exclusive prefix sum over
 ``sp`` of each chunk's per-expert counts), and the aux's two means over the
 global ``[B, T]`` (sums all-reduced over ``dp`` and ``sp`` before the
 product).
+
+Serving computes the drop-free mixture instead (every token reaches its
+top-k experts).  On CUDA with raw expert tables and a bfloat16 compute
+dtype it takes :func:`moe_mlp_routed`: the (token, expert) pairs sorted
+by expert on the device, their rows gathered once, the three expert
+products as grouped bf16 GEMMs over the per-expert segments
+(``torch._grouped_mm``), the rows weighted by their gates and summed back
+per token; its shapes are fixed by the token count, so it replays inside
+the serving engine's CUDA graphs.  Quantized tables, other compute dtypes
+and the CPU keep :func:`moe_mlp_reference`, a loop over the experts.  A
+tracer's counts of the routed layer (:class:`ExpertCounts`) are added to on
+the device, inside the captured programs, while :func:`counting` is on.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 
+from tputopo_torch import _graphs, _kernels
 from tputopo_torch.model import (all_reduce_f32, copy_to_tp, reduce_from_tp,
                                  resolve_device)
 from tputopo_torch.quant import deq, is_quantized, qdot
@@ -201,26 +215,40 @@ def moe_mlp(x: torch.Tensor, p: dict, cfg, tp=None) -> tuple[torch.Tensor, torch
     return out, aux
 
 
+EXPERT_TABLES = ("w_gate", "w_up", "w_down")
+
+
 def _expert(w, e: int):
     """Expert ``e`` of a stacked [E, ...] table, raw or quantized."""
     return {k: _expert(v, e) for k, v in w.items()} if isinstance(w, dict) else w[e]
 
 
-def moe_mlp_reference(x: torch.Tensor, p: dict, cfg) -> torch.Tensor:
+def _top_k_gates(x32: torch.Tensor, router: torch.Tensor, m: MoEConfig):
+    """The drop-free routing of x32 [..., D] (float32): a softmax over the
+    router's logits, the top k, and their gates renormalised over the k ->
+    (gates [..., k] float32, expert ids [..., k])."""
+    probs = torch.softmax(x32 @ router.float(), dim=-1)
+    gates, idx = torch.topk(probs, m.top_k, dim=-1)
+    return gates / gates.sum(-1, keepdim=True).clamp_min(1e-9), idx
+
+
+def moe_mlp_reference(x: torch.Tensor, p: dict, cfg, *, picks: bool = False):
     """Drop-free top-k mixture: every token reaches its top-k experts (no
-    capacity truncation).  The serving semantics (decode and the engines
-    route through it) and the yardstick of what the capacity path drops.
+    capacity truncation).  The yardstick of what the capacity path drops,
+    and what serving computes where :func:`moe_mlp_routed` does not take
+    the layer (:func:`routed_takes`): quantized tables, a compute dtype
+    other than bfloat16, the CPU.
 
     Where the reference scans over the stacked expert tables, a Python loop
     over experts accumulates into one f32 buffer, so no [E, B, T, F]
     tensor ever exists: peak memory is one [B, T, F] expert activation.
-    Raw tables stream at the compute dtype with f32 activations; quantized
-    ones go through :func:`~.quant.qdot`, one expert's slice at a time."""
+    Every expert computes on every token, its gate zero where it was not
+    chosen.  Raw tables stream at the compute dtype with f32 activations;
+    quantized ones go through :func:`~.quant.qdot`, one expert's slice at a
+    time.  With ``picks``, (output, the top-k expert ids [B, T, k])."""
     m = cfg.moe
     x32 = x.float()
-    probs = torch.softmax(x32 @ p["router"].float(), dim=-1)
-    gates, idx = torch.topk(probs, m.top_k, dim=-1)
-    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    gates, idx = _top_k_gates(x32, p["router"], m)
     w = (F.one_hot(idx, m.n_experts).float() * gates[..., None]).sum(2)  # [B,T,E]
 
     def wdot(x_, wt):
@@ -230,7 +258,146 @@ def moe_mlp_reference(x: torch.Tensor, p: dict, cfg) -> torch.Tensor:
 
     out = torch.zeros_like(x32)
     for e in range(m.n_experts):
-        wg, wu, wd = (_expert(p[n], e) for n in ("w_gate", "w_up", "w_down"))
+        wg, wu, wd = (_expert(p[n], e) for n in EXPERT_TABLES)
         h = F.silu(wdot(x32, wg)) * wdot(x32, wu)
         out.add_(w[..., e:e + 1] * wdot(h, wd))
-    return out.to(x.dtype)
+    return (out.to(x.dtype), idx) if picks else out.to(x.dtype)
+
+
+# ---- serving: the routed, drop-free expert layer -----------------------------
+
+def routed_takes(x: torch.Tensor, p: dict, cfg) -> bool:
+    """Whether serving computes this layer by :func:`moe_mlp_routed`: on
+    CUDA, with raw (unquantized) expert tables and a bfloat16 compute dtype,
+    the one ``torch._grouped_mm`` computes in."""
+    return (x.device.type == "cuda" and cfg.compute_dtype == torch.bfloat16
+            and not any(is_quantized(p[n]) for n in EXPERT_TABLES))
+
+
+def grouped_mm(a: torch.Tensor, b: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
+    """a [P, K] with its rows grouped, b [G, K, N], ``ends`` [G] int32 the
+    cumulative end row of each group (the last is P) -> [P, N]: rows
+    ``ends[g-1]:ends[g]`` of ``a`` times ``b[g]``; an empty group is
+    skipped.  On CUDA one ``torch._grouped_mm`` (bfloat16 operands, float32
+    accumulation, bfloat16 out) reading the ends on the device, counted in
+    ``_kernels.GROUPED_MM``; elsewhere a loop over the groups, which reads
+    the ends back."""
+    if a.device.type != "cuda":
+        out = a.new_zeros(a.shape[0], b.shape[-1])
+        lo = 0
+        for g, hi in enumerate(ends.tolist()):
+            if hi > lo:
+                out[lo:hi] = a[lo:hi] @ b[g]
+            lo = hi
+        return out
+    out = torch._grouped_mm(a, b, offs=ends)
+    if _graphs.capturing(a.device):
+        _kernels.GROUPED_MM.captured += 1
+    else:
+        _kernels.GROUPED_MM.launches += 1
+    return out
+
+
+class ExpertCounts:
+    """A tracer's counts of the routed layer, held on the device as int64
+    running sums and added to inside the captured programs (no readback):
+    ``calls``; ``pairs``, the routed (token, expert) pairs; ``experts_hit``,
+    the experts with at least one pair, summed over calls; ``max_load``, the
+    busiest expert's pairs, summed over calls; and on CUDA ``device_ns``,
+    the layer's device time from the GPU's global timer at its start and
+    end (``csrc/obs/device_clock.cu``).  :meth:`snapshot` reads them back."""
+
+    NAMES = ("calls", "pairs", "experts_hit", "max_load", "device_ns")
+
+    def __init__(self, device) -> None:
+        self.values = torch.zeros(len(self.NAMES), dtype=torch.int64, device=device)
+
+    def add(self, per_expert: torch.Tensor) -> None:
+        """One call whose pairs per expert are ``per_expert`` [E] int64."""
+        one = torch.ones((), dtype=torch.int64, device=per_expert.device)
+        self.values[:4] += torch.stack((one, per_expert.sum(), (per_expert > 0).sum(),
+                                        per_expert.max()))
+
+    def clock(self, sign: int) -> None:
+        """Add ``sign`` x the GPU's global timer to ``device_ns`` (-1 where
+        the layer starts, +1 where it ends); nothing off CUDA."""
+        if self.values.device.type == "cuda":
+            from tputopo_torch import attention
+
+            attention._call(_kernels.DEVICE_CLOCK,
+                            (self.values[4:].data_ptr(), sign, 0.0), self.values.device,
+                            "device clock")
+
+    def snapshot(self) -> dict:
+        return dict(zip(self.NAMES, self.values.tolist()))
+
+
+# The counts the routed layer adds to (:func:`counting`); None: it counts
+# nothing and adds no operation.
+_COUNTS: ExpertCounts | None = None
+_graphs.AMBIENT.append(lambda: None if _COUNTS is None else _COUNTS.values)
+
+
+@contextlib.contextmanager
+def counting(counts: ExpertCounts | None):
+    """Within the block, the routed layer adds to ``counts`` (None: to
+    nothing).  A program captured inside the block records the additions,
+    and each replay makes them again; the counts' storage is part of every
+    capture's key (:data:`~._graphs.AMBIENT`)."""
+    global _COUNTS
+    before, _COUNTS = _COUNTS, counts
+    try:
+        yield
+    finally:
+        _COUNTS = before
+
+
+def moe_mlp_routed(x: torch.Tensor, p: dict, cfg, *, picks: bool = False):
+    """The drop-free top-k mixture of :func:`moe_mlp_reference`, computed
+    on the routed pairs only: x [B, T, D] -> [B, T, D].
+
+    The router, its softmax, the top k and the renormalised gates are the
+    same operations, in float32.  The B*T*k (token, expert) pairs are sorted
+    by expert on the device (a stable sort, so each expert's pairs keep
+    their token order); each expert's segment ends at the running sum of
+    its pair count, taken by a scatter-add.  The pairs' rows, gathered into
+    one [B*T*k, D] buffer at the compute dtype, go through the three expert
+    products as grouped GEMMs over the segments (:func:`grouped_mm`), each
+    table cast from its float32 master at the call as ``qdot`` casts a
+    dense weight.  Each pair's output row, weighted by its gate in float32,
+    is put back at its (token, slot) place and the k slots of a token are
+    summed in slot order, so the result does not depend on the order in
+    which the device adds.  No step reads a value back to the host and
+    every shape is fixed by B*T, so the layer replays inside a CUDA graph.
+
+    It departs from :func:`moe_mlp_reference` as the dense serving FFN
+    departs from a float32 one: the expert activations (the gathered rows,
+    the products, the SiLU gate) are bfloat16 where the loop keeps them in
+    float32 against bfloat16 weights.  With ``picks``, (output, the top-k
+    expert ids [B, T, k])."""
+    m = cfg.moe
+    B, T, D = x.shape
+    E, k = m.n_experts, m.top_k
+    counts = _COUNTS
+    if counts is not None:
+        counts.clock(-1)
+    x2 = x.reshape(B * T, D)
+    gates, idx = _top_k_gates(x2.float(), p["router"], m)           # [N, k]
+    flat = idx.reshape(-1)                                           # pair -> expert
+    order = torch.sort(flat, stable=True).indices                    # pairs by expert
+    per_expert = torch.zeros(E, dtype=torch.int64, device=x.device).scatter_add_(
+        0, flat, torch.ones_like(flat))
+    ends = per_expert.cumsum(0).to(torch.int32)
+    dt = cfg.compute_dtype
+    rows = x2.to(dt).index_select(0, order // k)                     # [N*k, D]
+    h = F.silu(grouped_mm(rows, p["w_gate"].to(dt), ends))
+    h = h * grouped_mm(rows, p["w_up"].to(dt), ends)
+    y = grouped_mm(h, p["w_down"].to(dt), ends).float()              # [N*k, D]
+    y = y * gates.reshape(-1).index_select(0, order)[:, None]
+    y = torch.empty_like(y).index_copy_(0, order, y)                 # back in pair order
+    out = y.reshape(B * T, k, D).sum(1)
+    if counts is not None:
+        counts.add(per_expert)
+        counts.clock(1)
+    out = out.reshape(B, T, D).to(x.dtype)
+    return (out, idx.reshape(B, T, k)) if picks else out

@@ -45,7 +45,10 @@ parameters' device, as :func:`.decode.generate` does: the reference's
 ``fold_in(key, step)`` stream cannot be reproduced draw for draw, so the
 state keeps no step counter.  The reference's sharding constraints are
 the identity on one card and are dropped.  An MoE config's FFN is the
-drop-free mixture, as in :mod:`.decode`.
+drop-free mixture, as in :mod:`.decode`: on CUDA with raw expert tables the
+routed layer (:func:`~.moe.moe_mlp_routed`), whose sort, grouped GEMMs and
+combine replay inside the programs' graphs; with quantized tables or on
+the CPU the loop over the experts.
 """
 
 from __future__ import annotations
@@ -55,7 +58,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from tputopo_torch import _graphs, _kernels, attention, obs
+from tputopo_torch import _graphs, _kernels, attention, moe, obs
 from tputopo_torch.decode import KVCache, _block_hidden, _select, serving_ffn
 from tputopo_torch.model import (ModelConfig, _check_supported, _layer,
                                  _rmsnorm, _rope_tables, check_token_ids,
@@ -80,9 +83,10 @@ class DecodeState(NamedTuple):
 
 
 def init_state(config: ModelConfig, slots: int, max_len: int, *,
-               device=None) -> DecodeState:
+               device=None, record_routes: bool = False) -> DecodeState:
     """An empty state on ``device`` (``cuda`` unless the caller asks for
-    the CPU)."""
+    the CPU); with ``record_routes`` (an MoE config), its cache keeps the
+    expert choices at every position (``KVCache.routes``)."""
     _check_supported(config)
     dev = resolve_device(device)
 
@@ -90,7 +94,7 @@ def init_state(config: ModelConfig, slots: int, max_len: int, *,
         return torch.zeros(shape, dtype=torch.long, device=dev)
 
     return DecodeState(
-        cache=KVCache.create(config, slots, max_len, device=dev),
+        cache=KVCache.create(config, slots, max_len, device=dev, routes=record_routes),
         tokens=zeros(slots, max_len), length=zeros(slots),
         prompt_len=zeros(slots), budget=zeros(slots),
         seq_id=torch.full((slots,), -1, dtype=torch.long, device=dev),
@@ -519,7 +523,13 @@ def _ragged_layers(params: dict, config: ModelConfig, x: torch.Tensor,
         _write_kv_at(cache.v[i], v, starts)
         out = _attend_ragged(q, cache.k[i], cache.v[i], starts, group, cks, cvs)
         x = x + qdot(out.reshape(B, T, c.n_heads * c.head_dim), layer["wo"])
-        x = x + serving_ffn(_rmsnorm(x, layer["mlp_norm"], c.norm_eps), layer, c)
+        h = _rmsnorm(x, layer["mlp_norm"], c.norm_eps)
+        if cache.routes is None:
+            x = x + serving_ffn(h, layer, c)
+        else:  # the expert choices kept beside the K/V rows
+            y, picks = serving_ffn(h, layer, c, picks=True)
+            _write_kv_at(cache.routes[i], picks.to(torch.int8), starts)
+            x = x + y
     return x
 
 
@@ -626,6 +636,13 @@ class ServingEngine:
     past ``max_len`` (which still bounds submissions) for subclasses whose
     device programs write fixed-width windows at the frontier.
 
+    ``record_routes`` (an MoE config) keeps each finished request's expert
+    choices on the device: :attr:`routes` maps its id to the top-k expert
+    ids [L, positions, k] int8 of every position it fed through the
+    layers (its prompt and its tokens but the last; -1 where a prefix copy
+    filled the cache), copied from the slot when it is harvested, with no
+    readback.
+
     Streaming: ``on_tokens(rid, [token_ids])`` fires after each tick with
     the GENERATED tokens newly committed for that request; it costs one
     extra readback per tick, and none when no callback is set.
@@ -638,7 +655,10 @@ class ServingEngine:
     (:class:`~._graphs.Programs`), every device-to-host read and the stall
     that follows it (:meth:`_read`), and each request's ``queued``,
     ``admitted``, ``first_token`` and ``finished``.  Its export carries
-    :attr:`metrics` and the programs' counts.
+    :attr:`metrics`, the programs' counts, the launches of the decode
+    attention kernel and of the grouped GEMM, and for an MoE config the
+    routed layer's counts (``moe``: :class:`~.moe.ExpertCounts`, added to
+    on the device by every program captured while traced).
 
     All device work goes through the compiled programs, as the reference's
     engine does: on CUDA each replays its CUDA graph from this engine's
@@ -657,7 +677,8 @@ class ServingEngine:
                  prefill_chunk: int | None = None,
                  buffer_margin: int = 0,
                  on_tokens: Callable[[int, list[int]], None] | None = None,
-                 tracer: obs.Tracer | None = None) -> None:
+                 tracer: obs.Tracer | None = None,
+                 record_routes: bool = False) -> None:
         buckets = ((prompt_pad,) if isinstance(prompt_pad, int)
                    else tuple(sorted(set(prompt_pad))))
         if not buckets or any(b < 1 for b in buckets):
@@ -693,7 +714,8 @@ class ServingEngine:
         # empty when no callback is set.
         self._streamed: dict[int, int] = {}
         self.state = init_state(config, slots, max_len + buffer_margin,
-                                device=self.device)
+                                device=self.device, record_routes=record_routes)
+        self.routes: dict[int, torch.Tensor] = {}
         # The captured programs of this engine, on one graph memory pool.
         self.programs = _graphs.Programs()
         # (id, prompt-or-suffix, max_new, prefix id or None)
@@ -717,11 +739,18 @@ class ServingEngine:
     def tracer(self, tracer: obs.Tracer | None) -> None:
         """Trace from now on (None: stop); the programs take it too."""
         self._tracer = self.programs.tracer = tracer
+        self.expert_counts = (moe.ExpertCounts(self.device)
+                              if tracer is not None and self.config.moe is not None
+                              else None)
         if tracer is not None:
             tracer.carry("engine", lambda: dict(self.metrics))
             tracer.carry("programs", self.programs.counts)
             tracer.carry("decode_attention", lambda: {
                 "launches": self.programs.launches[_kernels.DECODE_ATTN.name]})
+            tracer.carry("grouped_mm", lambda: {
+                "launches": self.programs.launches[_kernels.GROUPED_MM.name]})
+            if self.expert_counts is not None:
+                tracer.carry("moe", self.expert_counts.snapshot)
 
     def _dev(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, dtype=np.int64), device=self.device)
@@ -736,10 +765,11 @@ class ServingEngine:
     def _run(self, name: str, work: dict, *args, **kw):
         """:meth:`_program`, traced under a span named after the program,
         whose attributes ``work`` says what it runs (request, slot, prompt
-        tokens, first position, steps)."""
+        tokens, first position, steps); an MoE config's routed layer adds
+        to :attr:`expert_counts` inside it."""
         if self.tracer is None:
             return self._program(name, *args, **kw)
-        with self.tracer.span(name, **work):
+        with self.tracer.span(name, **work), moe.counting(self.expert_counts):
             return self._program(name, *args, **kw)
 
     def _read(self, t: torch.Tensor) -> torch.Tensor:
@@ -915,6 +945,9 @@ class ServingEngine:
             rid = int(seq[slot])
             if rid >= 0:
                 self._results[rid] = tokens[slot, :int(length[slot])].tolist()
+                if self.state.cache.routes is not None:
+                    self.routes[rid] = self.state.cache.routes[
+                        :, slot, :int(length[slot]) - 1].clone()
                 self.metrics["finished"] += 1
                 if self.tracer is not None:
                     # without a stream, a request's tokens first reach the
