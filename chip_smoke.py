@@ -81,6 +81,13 @@ against the single-process one with its launches; the CLI runs ``train
 --experts 8`` with a resume, and refuses ``--pp 2`` on one device and
 ``--ep 2`` without experts with the reference's errors.
 
+After ``lora_serve``, once the 32-layer weights are gone,
+``resident_weights``: an engine at Mistral-7B-v0.3's widths serving from the
+bf16 copy of its weights made when it is built, against the same engine with
+the copy forced off (every program call casting the f32 masters): equal
+tokens, and one f32 -> bf16 copy kernel fewer for each projection of each
+layer and for the head in a device profile of a decode replay.
+
 The compiled-program slice: every engine above (``serve*``, ``spec_serve``'s
 admissions, ``lora_serve``, ``moe_decode_serve``) and the CLI's ``serve``
 and ``decode`` run the compiled programs, CUDA graphs replayed from their
@@ -192,6 +199,21 @@ SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW, SERVE_PREFIX = 24, (16, 1000), (8, 48),
 # the first ticks have filled its slots.  A whole run traces ~4,500 events a
 # tick, whose post-processing took minutes on the card's host (~4 s a tick).
 SERVE_WARM_TICKS, SERVE_PROFILED_TICKS = 8, 5
+# Resident weights: an engine at Mistral-7B-v0.3's widths and depth (vocab
+# 32768, d_model 4096, 32 q / 8 kv heads of 128, d_ff 14336, 32 layers,
+# rope_theta 1e6; random weights from a seed) at the chat cell's slots,
+# cache and buckets, serving a short seeded stream twice: from the bf16
+# copy the engine makes when it is built, and with that copy forced off
+# (the device read as full), so that every program call casts the f32
+# masters.  Both run the same bodies on the same bf16 values and strides,
+# so the tokens must be EQUAL.  A decode replay of the first must hold no
+# weight cast: one f32 -> bf16 copy kernel fewer than the second's for each
+# projection of each layer and for the head; the casts left are the
+# activations', the same in both.
+RESIDENT_ENGINE = dict(slots=32, max_len=2048, prompt_pad=(128, 512, 1024),
+                       prefill_chunk=128, eos_id=-1)
+RESIDENT_REQUESTS, RESIDENT_PROMPT, RESIDENT_NEW = 8, (16, 600), (8, 24)
+RESIDENT_CAST_KERNEL = "bfloat16_copy_kernel"
 # int8 weights and an int8 KV cache, each pick against the int8 tree's own
 # forward, whose K/V are never quantized.  Besides the bf16 difference of the
 # two computations (GEN_GAP), the cache rounds every K and V row to 1/254 of
@@ -1112,6 +1134,104 @@ def pool_bytes(pool) -> int | None:
         return None
     return sum(seg["total_size"] for seg in segments
                if tuple(seg["segment_pool_id"]) == tuple(pool))
+
+
+def mistral_config(tt, layers: int = 32):
+    """Mistral-7B-v0.3 at its published widths, ``layers`` deep."""
+    return tt.ModelConfig(vocab_size=32768, d_model=4096, n_layers=layers, n_heads=32,
+                          n_kv_heads=8, d_ff=14336, max_seq=32768, rope_theta=1e6,
+                          norm_eps=1e-5)
+
+
+def cast_kernels(fn) -> dict:
+    """The f32 -> bf16 copy kernels of one call of ``fn`` in a device
+    profile: their number and device milliseconds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n, ms, busy = 0, 0.0, 0.0
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.self_cuda_time_total
+        busy += dev_us / 1e3
+        if RESIDENT_CAST_KERNEL in ev.key:
+            n += ev.count
+            ms += dev_us / 1e3
+    return {"casts": n, "cast_ms": ms, "device_busy_ms": busy}
+
+
+@contextlib.contextmanager
+def copy_forced_off():
+    """Within the block, a serving engine reads the device as full and
+    serves from the masters, casting them on every call."""
+    from tputopo_torch import serving
+
+    read = serving._free_bytes
+    serving._free_bytes = lambda device: 0
+    try:
+        yield
+    finally:
+        serving._free_bytes = read
+
+
+def phase_resident_weights(tt) -> dict:
+    """The engine's resident bf16 weights against per-call casts at Mistral-7B
+    width (RESIDENT_ENGINE): equal tokens over a seeded stream, and in a
+    device profile of one decode replay 7 · L + 1 f32 -> bf16 copy kernels
+    fewer (none of them a weight's), with each replay's device time."""
+    from tputopo_torch.quant import compute_bytes
+
+    t_phase = time.perf_counter()
+    cfg = mistral_config(tt)
+    params = tt.init_params(cfg, 11, device="cuda")
+    _, reqs = serve_stream(cfg.vocab_size, 12, RESIDENT_REQUESTS, RESIDENT_PROMPT,
+                           RESIDENT_NEW, every=RESIDENT_REQUESTS + 1)
+    reqs = [(p, m, False) for p, m, _ in reqs]
+    runs, profiles, replay_ms, weights = [], [], [], []
+    for forced_off in (False, True):
+        with copy_forced_off() if forced_off else contextlib.nullcontext():
+            eng = tt.ServingEngine(params, cfg, **RESIDENT_ENGINE)
+        runs.append(run_engine(tt, params, cfg, None, reqs,
+                               make=lambda cb, e=eng: setattr(e, "on_tokens", cb) or e))
+        profiles.append(cast_kernels(eng._decode_tick))
+        replay_ms.append(cuda_ms(eng._decode_tick, launches=10))
+        weights.append(dict(eng.weights))
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    resident, cast = profiles
+    weight_casts = 7 * cfg.n_layers + 1
+    rec = {"phase": "resident_weights", "model": "mistral-7b-v0.3 widths", "layers": cfg.n_layers,
+           "engine": {k: list(v) if isinstance(v, tuple) else v
+                      for k, v in RESIDENT_ENGINE.items()},
+           "requests": len(reqs), "generated": runs[0]["generated"],
+           "weights": {"resident": weights[0], "forced_off": weights[1]},
+           "compute_bytes": compute_bytes(params, cfg.compute_dtype),
+           "decode_replay": {"resident": resident, "forced_off": cast},
+           "decode_replay_ms": {"resident": replay_ms[0], "forced_off": replay_ms[1]},
+           "weight_casts_per_replay": weight_casts,
+           "peak_mem_gb": [r["peak_mem_gb"] for r in runs],
+           "programs": [r["programs"] for r in runs],
+           "identical_runs": runs[0]["rows"] == runs[1]["rows"],
+           "card_state": card_state(), "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    check(weights[0]["resident"] == 1 and weights[0]["bytes"] == rec["compute_bytes"]
+          and weights[1] == {"resident": 0, "bytes": 0, "leaves": 0},
+          f"resident_weights: the engines' weights records {weights}")
+    check(rec["identical_runs"], "resident_weights: the resident copy changed the tokens")
+    check_rows(runs[0]["rows"], runs[0]["plens"], reqs, None, cfg.vocab_size,
+               "resident_weights")
+    check(cast["casts"] - resident["casts"] == weight_casts,
+          f"resident_weights: {resident['casts']} f32 -> bf16 copies in a resident decode "
+          f"replay, {cast['casts']} casting; want {weight_casts} fewer")
+    return rec
 
 
 def eager_engine(base):
@@ -3075,6 +3195,9 @@ def main() -> int:
     # The 32-layer parameters (32.1 GB) and the training state (~31 GB)
     # are never resident together.
     del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed("resident_weights", phase_resident_weights, tt)
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -25,6 +25,9 @@ order: int8 as ``(x @ q) * s`` in ``x``'s dtype, int4 as f32 per-group
 partials, the group sum, then one cast.  A LoRA leaf
 (``{"lora_base", "lora_a", "lora_b", "lora_scale"}``, :mod:`.lora`) is its
 frozen base, itself raw or quantized, plus the low-rank delta.
+
+A raw weight is cast to the compute dtype where it is used.  A server whose
+weights stay fixed holds them there once instead (:func:`compute_params`).
 """
 
 from __future__ import annotations
@@ -116,18 +119,57 @@ def quantize_params(params: dict, *, bits: int = 8,
         return (_quantize_leaf(w, axis=-2) if bits == 8
                 else _quantize_leaf4(w, group_size))
 
+    out = _map_matmul_weights(params, mat)
+    out["embed"] = _quantize_leaf(params["embed"], axis=-1)
+    return out
+
+
+def _map_matmul_weights(params: dict, fn) -> dict:
+    """The tree with ``fn`` applied to each raw matmul weight, the weights
+    serving casts whole to the compute dtype before use: the layers'
+    projections, the expert tables, ``lm_head``, and a LoRA leaf's
+    ``lora_base``.  Every other leaf is shared: the norms and the router
+    (used in f32), the embedding (gathered, then cast), the adapters and
+    quantized leaves."""
+    def leaf(w):
+        if isinstance(w, dict) and "lora_base" in w:
+            return dict(w, lora_base=leaf(w["lora_base"]))
+        return w if is_quantized(w) else fn(w)
+
     layers = dict(params["layers"])
     for name in _LAYER_WEIGHTS:
         if name in layers:
-            layers[name] = mat(layers[name])
-    if "moe" in layers:  # the expert tables; the router stays float32
+            layers[name] = leaf(layers[name])
+    if "moe" in layers:
         layers["moe"] = dict(layers["moe"], **{
-            name: mat(layers["moe"][name]) for name in ("w_gate", "w_up", "w_down")})
-    out = dict(params)
-    out["layers"] = layers
-    out["embed"] = _quantize_leaf(params["embed"], axis=-1)
-    out["lm_head"] = mat(params["lm_head"])
-    return out
+            name: leaf(layers["moe"][name]) for name in ("w_gate", "w_up", "w_down")})
+    return dict(params, layers=layers, lm_head=leaf(params["lm_head"]))
+
+
+@torch.no_grad()
+def compute_params(params: dict, dtype: torch.dtype) -> dict:
+    """``params`` with each weight that serving casts whole to ``dtype``
+    before use (:func:`_map_matmul_weights`) held as a contiguous copy at
+    ``dtype``; the input tree is left as it is and every other leaf is
+    shared.  The stacked ``[L, ...]`` layout is kept, so a layer's slice is
+    a view already at ``dtype``, and the consumers' ``.to(dtype)`` returns
+    it with no kernel: the products see the values and strides a per-call
+    cast gives them."""
+    return _map_matmul_weights(params, lambda w: w if w.dtype == dtype else w.to(
+        dtype, memory_format=torch.contiguous_format))
+
+
+def compute_bytes(params: dict, dtype: torch.dtype) -> int:
+    """Device bytes :func:`compute_params` allocates for ``params``."""
+    sizes = []
+
+    def record(w):
+        if w.dtype != dtype:
+            sizes.append(w.numel() * dtype.itemsize)
+        return w
+
+    _map_matmul_weights(params, record)
+    return sum(sizes)
 
 
 def qdot(x: torch.Tensor, w) -> torch.Tensor:

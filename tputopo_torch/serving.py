@@ -63,7 +63,8 @@ from tputopo_torch.decode import KVCache, _block_hidden, _select, serving_ffn
 from tputopo_torch.model import (ModelConfig, _check_supported, _layer,
                                  _rmsnorm, _rope_tables, check_token_ids,
                                  embed_tokens, lm_head, resolve_device)
-from tputopo_torch.quant import deq_rows, fold_kv_scale, qdot, quantize_kv
+from tputopo_torch.quant import (compute_bytes, compute_params, deq_rows,
+                                 fold_kv_scale, qdot, quantize_kv)
 
 
 class DecodeState(NamedTuple):
@@ -616,6 +617,46 @@ def decode_steps_jit(params: dict, state: DecodeState, config: ModelConfig,
                 bound=(params, state), mutated=state, generator=generator)
 
 
+# ---- the engine's weights: held at the compute dtype where they fit --------
+
+# Device bytes kept free beside the compute copy, the state and its clone:
+# the programs' graph pool and the activations outside it.
+RESIDENT_HEADROOM = 4 << 30
+
+
+def _free_bytes(device: torch.device) -> int | None:
+    """Bytes the engine could still allocate on ``device``: the device's
+    free memory and what the caching allocator holds unused; None on the
+    CPU, which sets no limit."""
+    if device.type != "cuda":
+        return None
+    free, _ = torch.cuda.mem_get_info(device)
+    return (free + torch.cuda.memory_reserved(device)
+            - torch.cuda.memory_allocated(device))
+
+
+def resident_params(params: dict, config: ModelConfig,
+                    state: DecodeState) -> tuple[dict, dict]:
+    """The weights an engine serves from, and what it holds for them.
+    Where the compute copy (:func:`~.quant.compute_params`) fits beside
+    ``state``, the state's clone that each capture's warm-up makes and
+    :data:`RESIDENT_HEADROOM`, that copy: no program casts a weight again.
+    Otherwise ``params``, cast on every call.  The record: ``resident``
+    (1 when every weight the programs cast whole is at the compute dtype),
+    the copy's ``bytes`` and its ``leaves``."""
+    dt = config.compute_dtype
+    need = compute_bytes(params, dt)
+    spare = _free_bytes(state.tokens.device)
+    clone = sum(t.nbytes for t in _graphs.tensors(state))
+    if need and spare is not None and spare < need + clone + RESIDENT_HEADROOM:
+        return params, {"resident": 0, "bytes": 0, "leaves": 0}
+    tree = compute_params(params, dt)
+    copied = [b for a, b in zip(_graphs.tensors(params), _graphs.tensors(tree))
+              if a is not b]
+    return tree, {"resident": 1, "bytes": sum(t.nbytes for t in copied),
+                  "leaves": len(copied)}
+
+
 # ---- host-side engine (pure control plane) ----------------------------------
 
 class ServingEngine:
@@ -647,6 +688,12 @@ class ServingEngine:
     the GENERATED tokens newly committed for that request; it costs one
     extra readback per tick, and none when no callback is set.
 
+    The weights are fixed for the engine's life.  It serves from a copy of
+    ``params`` at the compute dtype, made once when it is built, where the
+    device holds that copy beside the state (:func:`resident_params`, whose
+    record is :attr:`weights`); otherwise each program call casts them.
+    Later changes to ``params`` do not reach a resident copy.
+
     ``tracer`` (an :class:`~.obs.Tracer`, settable later; None by default)
     records a ``tick`` span per :meth:`step` with the five phase spans
     :data:`~.obs.PHASES` as its children, a span per program call (named
@@ -656,9 +703,10 @@ class ServingEngine:
     that follows it (:meth:`_read`), and each request's ``queued``,
     ``admitted``, ``first_token`` and ``finished``.  Its export carries
     :attr:`metrics`, the programs' counts, the launches of the decode
-    attention kernel and of the grouped GEMM, and for an MoE config the
-    routed layer's counts (``moe``: :class:`~.moe.ExpertCounts`, added to
-    on the device by every program captured while traced).
+    attention kernel and of the grouped GEMM, :attr:`weights`, and for an
+    MoE config the routed layer's counts (``moe``:
+    :class:`~.moe.ExpertCounts`, added to on the device by every program
+    captured while traced).
 
     All device work goes through the compiled programs, as the reference's
     engine does: on CUDA each replays its CUDA graph from this engine's
@@ -696,7 +744,6 @@ class ServingEngine:
             raise ValueError(
                 f"prefill_chunk {prefill_chunk} must be >= 1 and divide "
                 f"every bucket {buckets}")
-        self.params = params
         self.config = config
         self.device = params["final_norm"].device
         self.slots = slots
@@ -715,6 +762,7 @@ class ServingEngine:
         self._streamed: dict[int, int] = {}
         self.state = init_state(config, slots, max_len + buffer_margin,
                                 device=self.device, record_routes=record_routes)
+        self.params, self.weights = resident_params(params, config, self.state)
         self.routes: dict[int, torch.Tensor] = {}
         # The captured programs of this engine, on one graph memory pool.
         self.programs = _graphs.Programs()
@@ -743,12 +791,17 @@ class ServingEngine:
                               if tracer is not None and self.config.moe is not None
                               else None)
         if tracer is not None:
-            tracer.carry("engine", lambda: dict(self.metrics))
-            tracer.carry("programs", self.programs.counts)
+            # The carries hold what they read, not the engine: no cycle
+            # through the tracer keeps a dropped engine's weights and state
+            # on the device until the collector runs.
+            metrics, programs, weights = self.metrics, self.programs, self.weights
+            tracer.carry("engine", lambda: dict(metrics))
+            tracer.carry("programs", programs.counts)
             tracer.carry("decode_attention", lambda: {
-                "launches": self.programs.launches[_kernels.DECODE_ATTN.name]})
+                "launches": programs.launches[_kernels.DECODE_ATTN.name]})
             tracer.carry("grouped_mm", lambda: {
-                "launches": self.programs.launches[_kernels.GROUPED_MM.name]})
+                "launches": programs.launches[_kernels.GROUPED_MM.name]})
+            tracer.carry("weights", lambda: dict(weights))
             if self.expert_counts is not None:
                 tracer.carry("moe", self.expert_counts.snapshot)
 

@@ -447,13 +447,14 @@ class SpecServingEngine(ServingEngine):
         if gamma < 1:
             raise ValueError(f"gamma must be >= 1, got {gamma}")
         self.gamma = gamma
-        self.draft_params, self.draft_cfg = draft_slice(params, config, draft_layers)
         # buffer_margin: a slot at the logical max_len still needs a
         # non-clamping gamma+1 verify window (_write_kv_at's contract);
         # submissions stay bounded by the logical max_len.
         super().__init__(params, config, slots=slots, max_len=max_len,
                          prompt_pad=prompt_pad, eos_id=eos_id,
                          buffer_margin=gamma + 1, on_tokens=on_tokens, tracer=tracer)
+        # Views of the engine's weights, the compute copy where it holds one.
+        self.draft_params, self.draft_cfg = draft_slice(self.params, config, draft_layers)
         self._dcache = KVCache.create(self.draft_cfg, slots, max_len + gamma + 1,
                                       device=self.device)
         self._dlen = torch.zeros((slots,), dtype=torch.long, device=self.device)
