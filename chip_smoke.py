@@ -22,7 +22,8 @@ Phases, each printed as one JSON line on stdout:
    weights from a seed) on 2048 tokens: ``attn_impl="auto"`` must launch
    the flash kernel once per layer, the logits must be finite and agree
    with the einsum path within a stated bound;
-5. greedy KV-cache decoding at full width, twice, with identical tokens;
+5. greedy KV-cache decoding at full width, twice, with identical tokens,
+   each single-token step through ``decode_attn``, a launch a layer;
 6. serving at full width, 32 layers: the continuous-batching engine (8
    slots, chunked prefill, one shared prefix, streaming) over a seeded
    stream of 24 requests, twice with identical tokens, every greedy pick
@@ -233,7 +234,7 @@ SERVE_INT8_BYTE_RATIO = 0.55  # the reference's bound (tests/test_quant.py)
 SERVE_INT4_LAYERS, SERVE_INT4_GROUP = 4, 128
 SERVE_INT4_REQUESTS, SERVE_INT4_PROMPT, SERVE_INT4_NEW = 4, (16, 512), (8, 16)
 
-# The decode-attention kernel against the einsums of serving._attend_ragged
+# The decode-attention kernel against the einsums of attention.cached_attention_plain
 # on the same bf16 cache: both sum the same f32 products in another order
 # (the kernel in splits of 256 positions merged at the end), so the f32
 # outputs differ by a few f32 ulps and their bf16 roundings by at most one
@@ -693,8 +694,8 @@ def decode_bound_ms(pos: torch.Tensor, T: int, S: int, N: int, KV: int, H: int) 
     return nbytes / PEAK_BYTES * 1e3
 
 
-def phase_decode_attn(att, serving, kernel) -> dict:
-    """The decode-attention kernel against serving's einsums at Mistral's
+def phase_decode_attn(att, kernel) -> dict:
+    """The decode-attention kernel against its plain version's einsums at Mistral's
     heads and both serving cells' caches, T in DECODE_TS; positions at 0, a
     tile's and a split's edges, S - 1 (an idle slot), below 0 (every
     position masked for the first query) and past S - 1; two launches bit
@@ -719,7 +720,7 @@ def phase_decode_attn(att, serving, kernel) -> dict:
         before = kernel.launches
         got = att._decode_attention_cuda(q, ck, cv, pos)
         again = att._decode_attention_cuda(q, ck, cv, pos)
-        ref = serving._attend_ragged_plain(q, ck, cv, pos, N // KV)
+        ref = att.cached_attention_plain(q, ck, cv, pos, N // KV)
         torch.cuda.synchronize()
         ulps = bf16_ulps(got, ref, DECODE_ULP_FLOOR)
         masked = ulps[7, 0].max().item() if B > 7 else None
@@ -749,7 +750,7 @@ def phase_decode_attn(att, serving, kernel) -> dict:
         q = torch.randn((B, 1, N, H), generator=gen, device="cuda", dtype=torch.bfloat16)
         pos = decode_positions(cell, B, S, 17)
         kernel_ms = graph_ms(lambda: att._decode_attention_cuda(q, ck, cv, pos))
-        plain_ms = graph_ms(lambda: serving._attend_ragged_plain(q, ck, cv, pos, group))
+        plain_ms = graph_ms(lambda: att.cached_attention_plain(q, ck, cv, pos, group))
         # SDPA's layout [B, heads, S, H], copied outside the timed calls
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, ck, cv))
         mask = (torch.arange(S, device="cuda") <= pos[:, None])[:, None, None, :]
@@ -825,19 +826,24 @@ def phase_forward(tt, kernels) -> tuple:
     return params, cfg, tokens, launches
 
 
-def phase_generate(tt, kernels, params, cfg) -> torch.Tensor:
-    """Greedy KV-cache decode at full width, twice; returns the prompt."""
+def phase_generate(tt, kernels, params, cfg) -> tuple:
+    """Greedy KV-cache decode at full width, twice; each single-token step
+    attends through the decode-attention kernel, a launch a layer, and the
+    128-token prefill through the einsums.  Returns (the prompt, the
+    kernel's launches of one run)."""
     B, P, new = GEN_BATCH, GEN_PROMPT, GEN_NEW
     prompt = torch.randint(0, cfg.vocab_size, (B, P), device="cuda",
                            generator=torch.Generator(device="cuda").manual_seed(2))
     runs = []
     for _ in range(2):
         reset(kernels)
+        before = tt._kernels.DECODE_ATTN.launches
         t0 = time.perf_counter()
         out = tt.generate(params, prompt, cfg, max_new=new)
         torch.cuda.synchronize()
-        runs.append((out, time.perf_counter() - t0))
-    (a, _), (b, dt) = runs
+        runs.append((out, time.perf_counter() - t0,
+                     tt._kernels.DECODE_ATTN.launches - before))
+    (a, _, _), (b, dt, decode_attn) = runs
     check(tuple(a.shape) == (B, P + new), f"generate shape {tuple(a.shape)}")
     check(bool(((a >= 0) & (a < cfg.vocab_size)).all()), "generated ids out of range")
     check(bool(torch.equal(a[:, :P], prompt)), "generate changed the prompt")
@@ -850,12 +856,15 @@ def phase_generate(tt, kernels, params, cfg) -> torch.Tensor:
     gap = (full.amax(-1) - full.gather(-1, picks[..., None])[..., 0]).max().item()
     emit({"phase": "generate", "model": "llama3_8b", "batch": B, "prompt": P,
           "max_new": new, "wall_s": dt, "new_tokens_per_s": B * new / dt,
-          "launches": gen_launches, "identical_runs": True,
+          "launches": gen_launches, "decode_attn_launches": decode_attn,
+          "identical_runs": True,
           "vs_forward_top1": top1, "vs_forward_max_gap": gap,
           "bound_max_gap": GEN_GAP})
     check(gap <= GEN_GAP, f"a generated token is not the forward's greedy pick: "
                           f"logit gap {gap} > {GEN_GAP}")
-    return prompt
+    check(decode_attn == cfg.n_layers * (new - 1),
+          f"generate: decode_attn launches {decode_attn}, want {cfg.n_layers} a step")
+    return prompt, decode_attn
 
 
 def serve_stream(vocab: int, seed: int, n: int, prompt: tuple, new: tuple,
@@ -3137,7 +3146,7 @@ def device_profile(path: str, fn, top: int = 12) -> dict:
 def main() -> int:
     check(torch.cuda.is_available(), "no CUDA device")
     import tputopo_torch as tt
-    from tputopo_torch import _kernels, attention as att, serving
+    from tputopo_torch import _kernels, attention as att
     from tputopo_torch.distributed import shutdown
 
     name = card()
@@ -3162,14 +3171,14 @@ def main() -> int:
 
     entries = [timed("flash", phase_flash, att, _kernels.FLASH_FWD),
                *timed("flash_bwd", phase_flash_bwd, att)]
-    decode_entry = timed("decode_attn", phase_decode_attn, att, serving,
-                         _kernels.DECODE_ATTN)
+    decode_entry = timed("decode_attn", phase_decode_attn, att, _kernels.DECODE_ATTN)
     timed("repairs", phase_repairs, tt, att, _kernels.FLASH)
     gc.collect()
     torch.cuda.empty_cache()
     params, cfg, tokens, fwd_launches = timed("forward", phase_forward, tt,
                                               _kernels.FLASH)
-    prompt = timed("generate", phase_generate, tt, _kernels.FLASH, params, cfg)
+    prompt, gen_decode_attn = timed("generate", phase_generate, tt, _kernels.FLASH,
+                                    params, cfg)
     timed("profile_forward", lambda: emit(device_profile(
         "forward", lambda: tt.forward(params, tokens, cfg))))
     timed("profile_generate", lambda: emit(device_profile(
@@ -3301,9 +3310,10 @@ def main() -> int:
                                  "sp2_ring": [r[e["name"]] for r in tp2_launches["sp2_ring"]],
                                  **{k: tp2_launches[k][0][e["name"]]
                                     for k in ("sp2_a2a", "pp2", "ep2")}}
-    # one decode step's replay: a launch a layer
+    # one decode step's replay: a launch a layer; one generate call
     decode_entry["launches_by_path"] = {"serve_decode_step_replay": (
-        serve_decode_attn["launches"] / serve_decode_attn["decode_steps_replayed"])}
+        serve_decode_attn["launches"] / serve_decode_attn["decode_steps_replayed"]),
+        "generate": gen_decode_attn}
     emit({"phase": "seconds", **seconds})
     emit({"kernels": entries + [decode_entry]})
     print(name, flush=True)

@@ -1,12 +1,14 @@
-"""The serving step's cache attention and its kernel, on the CPU.
+"""Attention over a KV cache and its kernel, on the CPU.
 
-``serving._attend_ragged`` sends a call to ``csrc/decode_attn.cu`` when the
-code can see that the kernel takes it (CUDA, a bf16 cache, at most 16
+``attention.cached_attention`` sends a call to ``csrc/decode_attn.cu`` when
+the code can see that the kernel takes it (CUDA, a bf16 cache, at most 16
 queries per slot, a group and head dim the kernel takes) and keeps the
-einsums otherwise.  Held here: that rule, the wrapper's refusals, the CPU
-path bit for bit the einsums it always was, and the launch count a traced
-engine exports.  The kernel itself runs only on the card (``chip_smoke.py``
-phase ``decode_attn``, and the ``cuda`` cases below)."""
+einsums otherwise.  Held here: that rule, that the serving step and the
+one-shot paths (``generate``, ``build_prefix_cache``) reach the same
+dispatcher, the wrapper's refusals, the CPU path bit for bit the einsums it
+always was, and the launch count a traced engine exports.  The kernel
+itself runs only on the card (``chip_smoke.py`` phases ``decode_attn`` and
+``generate``, and the ``cuda`` cases below)."""
 
 from types import SimpleNamespace
 
@@ -17,6 +19,7 @@ torch = pytest.importorskip("torch")
 
 from tputopo_torch import _graphs, _kernels, obs
 from tputopo_torch import attention as att
+from tputopo_torch import decode as td
 from tputopo_torch import model as tm
 from tputopo_torch import serving as ts
 from tputopo_torch.quant import fold_kv_scale, quantize_kv
@@ -25,10 +28,13 @@ torch.set_num_threads(1)
 
 CUDA, CPU = torch.device("cuda"), torch.device("cpu")
 BF16, F32, INT8 = torch.bfloat16, torch.float32, torch.int8
+CFG = tm.ModelConfig(vocab_size=64, d_model=32, n_layers=3, n_heads=4, n_kv_heads=2,
+                     d_ff=64, max_seq=64, compute_dtype=torch.float32)
 
 
 def _old_einsum(q, ck, cv, pos, group, ck_s=None, cv_s=None):
-    """``_attend_ragged`` as it was before the kernel, verbatim."""
+    """The serving step's cache attention as it was before the kernel,
+    verbatim."""
     B, T, N, H = q.shape
     KV = ck.shape[2]
     scale = 1.0 / (H ** 0.5)
@@ -47,7 +53,7 @@ def _old_einsum(q, ck, cv, pos, group, ck_s=None, cv_s=None):
 
 
 def _stand_ins(device, cache, T, group=4, H=128, q_dtype=BF16, KV=8):
-    """q and a cache layer as ``_decode_kernel_takes`` sees them: a device,
+    """q and a cache layer as ``decode_kernel_takes`` sees them: a device,
     dtypes and shapes (CUDA tensors cannot be made here)."""
     q = SimpleNamespace(device=device, dtype=q_dtype, shape=(2, T, KV * group, H))
     ck = SimpleNamespace(device=device, dtype=cache, shape=(2, 64, KV, H))
@@ -70,7 +76,7 @@ def _stand_ins(device, cache, T, group=4, H=128, q_dtype=BF16, KV=8):
 def test_dispatch_rule(device, cache, scaled, T, group, H, q_dtype, want):
     q, ck = _stand_ins(device, cache, T, group, H, q_dtype)
     ck_s = object() if scaled else None
-    assert ts._decode_kernel_takes(q, ck, ck_s, group) is want
+    assert att.decode_kernel_takes(q, ck, ck_s, group) is want
 
 
 def _layer(B=3, T=1, S=40, N=8, KV=2, H=16, dtype=BF16, seed=0):
@@ -86,34 +92,70 @@ def _layer(B=3, T=1, S=40, N=8, KV=2, H=16, dtype=BF16, seed=0):
 def test_cpu_path_is_the_old_einsum_bit_for_bit(T, dtype):
     q, ck, cv, pos, group = _layer(B=5, T=T, dtype=dtype)
     before = _kernels.DECODE_ATTN.launches
-    got = ts._attend_ragged(q, ck, cv, pos, group)
+    got = att.cached_attention(q, ck, cv, pos, group)
     assert torch.equal(got, _old_einsum(q, ck, cv, pos, group))
-    assert torch.equal(got, ts._attend_ragged_plain(q, ck, cv, pos, group))
+    assert torch.equal(got, att.cached_attention_plain(q, ck, cv, pos, group))
     assert _kernels.DECODE_ATTN.launches == before
 
 
 def test_cpu_int8_path_is_the_old_einsum_bit_for_bit():
     q, ck, cv, pos, group = _layer(B=4, T=3, dtype=F32)
     (ck8, cks), (cv8, cvs) = quantize_kv(ck), quantize_kv(cv)
-    got = ts._attend_ragged(q, ck8, cv8, pos, group, cks, cvs)
+    got = att.cached_attention(q, ck8, cv8, pos, group, cks, cvs)
     assert torch.equal(got, _old_einsum(q, ck8, cv8, pos, group, cks, cvs))
 
 
-@pytest.mark.parametrize("takes", [True, False])
-def test_attend_ragged_goes_where_the_rule_says(takes, monkeypatch):
+def _one_shot(via):
+    """The one-shot path ``via`` on a small f32 model -> (its output, the
+    (T, pos) of every cache attention it runs): ``generate``'s prefill and
+    T = 1 steps, or ``build_prefix_cache``'s one block."""
+    params = tm.init_params(CFG, 0, device="cpu")
+    if via == "generate":
+        prompt = torch.tensor([[1, 5, 9, 2, 7], [3, 3, 8, 1, 4]])
+        out = td.generate(params, prompt, CFG, max_new=3)
+        want = [(5, [0, 0])] * CFG.n_layers + [
+            (1, [5 + i] * 2) for i in range(2) for _ in range(CFG.n_layers)]
+        return out, want
+    cache = ts.build_prefix_cache(params, CFG, torch.tensor([4, 1, 6, 2, 9, 3]))
+    return torch.cat([cache.k, cache.v]), [(6, [0])] * CFG.n_layers
+
+
+@pytest.mark.parametrize("via,takes", [
+    pytest.param(None, True, id="True"), pytest.param(None, False, id="False"),
+    pytest.param("generate", True, id="generate-True"),
+    pytest.param("generate", False, id="generate-False"),
+    pytest.param("build_prefix_cache", True, id="build_prefix_cache-True"),
+    pytest.param("build_prefix_cache", False, id="build_prefix_cache-False"),
+])
+def test_attend_ragged_goes_where_the_rule_says(via, takes, monkeypatch):
     """The kernel's wrapper gets the very tensors, and its output is the
-    answer; otherwise it is not called."""
-    q, ck, cv, pos, group = _layer()
+    answer; otherwise it is not called.  ``generate``'s prefill and T = 1
+    steps and ``build_prefix_cache`` reach the same dispatcher as the
+    serving step, each row at its own position."""
     calls = []
+    if via is not None:
+        plain, want = _one_shot(via)
+
+        def wrapper(q, ck, cv, pos):  # the einsums, so the path runs on
+            calls.append((q.shape[1], pos.tolist()))
+            return att.cached_attention_plain(q, ck, cv, pos, CFG.n_heads // CFG.n_kv_heads)
+
+        monkeypatch.setattr(att, "decode_kernel_takes", lambda *a: takes)
+        monkeypatch.setattr(att, "_decode_attention_cuda", wrapper)
+        got, _ = _one_shot(via)
+        assert torch.equal(got, plain)
+        assert calls == (want if takes else [])
+        return
+    q, ck, cv, pos, group = _layer()
     sentinel = torch.zeros_like(q)
 
     def wrapper(*args):
         calls.append(args)
         return sentinel
 
-    monkeypatch.setattr(ts, "_decode_kernel_takes", lambda *a: takes)
+    monkeypatch.setattr(att, "decode_kernel_takes", lambda *a: takes)
     monkeypatch.setattr(att, "_decode_attention_cuda", wrapper)
-    got = ts._attend_ragged(q, ck, cv, pos, group)
+    got = att.cached_attention(q, ck, cv, pos, group)
     if takes:
         assert got is sentinel and len(calls) == 1
         assert all(a is b for a, b in zip(calls[0], (q, ck, cv, pos)))
@@ -183,10 +225,6 @@ def test_wrapper_takes_a_sound_call():
 
 
 # ---- the count a traced engine exports ---------------------------------------
-
-CFG = tm.ModelConfig(vocab_size=64, d_model=32, n_layers=3, n_heads=4, n_kv_heads=2,
-                     d_ff=64, max_seq=64, compute_dtype=torch.float32)
-
 
 class _StandInGraph:
     """Replays by re-running the body on the static inputs."""
@@ -267,7 +305,7 @@ def test_cuda_kernel_matches_the_einsums(cuda, B, T, S, N, KV, H):
     before = _kernels.DECODE_ATTN.launches
     got = att._decode_attention_cuda(q, ck, cv, pos)
     again = att._decode_attention_cuda(q, ck, cv, pos)
-    ref = ts._attend_ragged_plain(q, ck, cv, pos, group)
+    ref = att.cached_attention_plain(q, ck, cv, pos, group)
     torch.cuda.synchronize()
     assert _kernels.DECODE_ATTN.launches == before + 2 and torch.equal(got, again)
     _, e = torch.frexp(ref.float().abs().clamp(min=2.0 ** -8))

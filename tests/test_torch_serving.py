@@ -254,7 +254,7 @@ def test_write_kv_at_clamps_like_jax(starts):
     ref = np.asarray(js._write_kv_at(jnp.asarray(cache), jnp.asarray(kv),
                                      jnp.asarray(pos)))
     out = torch.from_numpy(cache.copy())
-    ts._write_kv_at(out, torch.from_numpy(kv), torch.from_numpy(pos).long())
+    td._write_kv_at(out, torch.from_numpy(kv), torch.from_numpy(pos).long())
     np.testing.assert_array_equal(out.numpy(), ref)
 
 

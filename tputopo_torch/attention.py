@@ -11,10 +11,11 @@ function, with the same dtype casts, that the tests hold against the JAX
 package and that ``chip_smoke.py`` holds the kernels against on the card.
 Nothing falls back: a CUDA call that cannot launch its kernel raises.
 
-The serving step's attention over its bf16 KV cache has a kernel too,
+Attention over a KV cache, :func:`cached_attention`, has a kernel too,
 ``csrc/decode_attn.cu`` (:func:`_decode_attention_cuda`), where the
-reference leaves plain einsums to XLA; ``serving._attend_ragged`` is its
-plain version and decides which calls take it.
+reference leaves plain einsums to XLA: :func:`decode_kernel_takes` says
+which calls take it, and the rest run :func:`cached_attention_plain`, its
+plain version, on the card as on the CPU.
 
 :func:`flash_attention` is differentiable through one
 ``torch.autograd.Function``.  Its forward saves ``(q, k, v, o, lse)`` as the
@@ -39,6 +40,7 @@ from __future__ import annotations
 import torch
 
 from tputopo_torch import _graphs, _kernels
+from tputopo_torch.quant import fold_kv_scale
 
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -221,10 +223,10 @@ def _flash_dkv_cuda(q, k, v, do, lse, d, *, causal):
     return dk, dv
 
 
-# ---- decode attention over a bf16 cache -------------------------------------
+# ---- attention over a KV cache ----------------------------------------------
 #
-# ``csrc/decode_attn.cu`` computes the serving step's cache attention,
-# ``serving._attend_ragged``, whose einsums are its plain version.
+# ``csrc/decode_attn.cu`` computes :func:`cached_attention` over a bf16 cache
+# for few queries a row; :func:`cached_attention_plain` is its plain version.
 
 DECODE_SPLIT = 256              # cache positions per block: ``SPLIT`` in the source
 DECODE_MAX_QUERIES = 64         # T * group queries per KV head: ``MAX_Q``
@@ -235,6 +237,64 @@ def decode_kernel_fits(T: int, group: int, H: int) -> bool:
     """Whether the decode-attention kernel takes T queries per slot, GQA
     ``group`` and head dim ``H``."""
     return T * group <= DECODE_MAX_QUERIES and H == DECODE_HEAD_DIM
+
+
+def decode_kernel_takes(q: torch.Tensor, ck: torch.Tensor,
+                        ck_s: torch.Tensor | None, group: int) -> bool:
+    """Whether :func:`cached_attention` sends the call to the decode-attention
+    kernel: CUDA tensors, a bf16 cache (no int8 scales) and bf16 queries, at
+    most 16 queries per row (the decode step and the speculative draft, 1;
+    the verify block, gamma + 1; wider calls, the prefills, keep the
+    einsums), and a group and head dim the kernel takes."""
+    T, H = q.shape[1], q.shape[3]
+    return (q.device.type == "cuda" and ck_s is None
+            and ck.dtype == q.dtype == torch.bfloat16 and T <= 16
+            and decode_kernel_fits(T, group, H))
+
+
+def cached_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                     pos: torch.Tensor, group: int,
+                     ck_s: torch.Tensor | None = None,
+                     cv_s: torch.Tensor | None = None) -> torch.Tensor:
+    """T queries per row, each row at its OWN base position: q [B, T, N, H]
+    against one layer's cache [B, S, KV, H]; row b's query t sits at
+    pos[b] + t and attends cache positions <= it -> [B, T, N, H].  An int8
+    cache passes its scale buffers ``ck_s``/``cv_s`` [B, S, KV, 1].  The
+    decode-attention kernel where :func:`decode_kernel_takes` the call,
+    which reads the cache in place and only up to each row's position;
+    :func:`cached_attention_plain` otherwise."""
+    if decode_kernel_takes(q, ck, ck_s, group):
+        return _decode_attention_cuda(q, ck, cv, pos)
+    return cached_attention_plain(q, ck, cv, pos, group, ck_s, cv_s)
+
+
+def cached_attention_plain(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                           pos: torch.Tensor, group: int,
+                           ck_s: torch.Tensor | None = None,
+                           cv_s: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`cached_attention` as the reference's einsums over the whole
+    cache, masked with -1e30: the decode-attention kernel's plain version.
+
+    GQA stays grouped: q reshapes to [B, T, KV, group, H], so head n reads
+    kv head n // group (the repeat order of the forward) and the cache is
+    read at its own KV width.  An int8 cache folds its per-key-position
+    scale into the logits and its per-value-position scale into the
+    probabilities, both exact."""
+    B, T, N, H = q.shape
+    KV = ck.shape[2]
+    scale = 1.0 / (H ** 0.5)
+    qg = q.float().reshape(B, T, KV, group, H) * scale
+    s = torch.einsum("btkgh,bskh->bkgts", qg, ck.float())
+    if ck_s is not None:
+        s = s * fold_kv_scale(ck_s)
+    k_pos = torch.arange(ck.shape[1], device=q.device)
+    q_pos = pos[:, None] + torch.arange(T, device=q.device)  # [B, T]
+    s = torch.where(k_pos <= q_pos[:, None, None, :, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    if cv_s is not None:
+        p = p * fold_kv_scale(cv_s)
+    out = torch.einsum("bkgts,bskh->btkgh", p, cv.float())
+    return out.reshape(B, T, N, H).to(q.dtype)
 
 
 def _decode_launch_args(q, ck, cv, pos, outputs: dict) -> tuple:
@@ -279,7 +339,7 @@ def _decode_attention_cuda(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
                            pos: torch.Tensor) -> torch.Tensor:
     """Launch ``csrc/decode_attn.cu``: q [B, T, N, H] against one layer's
     bf16 cache ck, cv [B, S, KV, H], read in place; slot b's query t sits
-    at pos[b] + t -> out [B, T, N, H] bf16, as ``serving._attend_ragged``."""
+    at pos[b] + t -> out [B, T, N, H] bf16, as :func:`cached_attention_plain`."""
     B, T, N, H = q.shape
     S, KV = ck.shape[1], ck.shape[2]
     splits = (B, KV, -(-S // DECODE_SPLIT), T * (N // KV))

@@ -3,8 +3,8 @@
 //
 // Replaces no Pallas kernel: the reference attends by einsums, which XLA
 // fuses.  Computes tputopo/workloads/serving.py:_attend_ragged for a bf16
-// cache, the port's serving.py:_attend_ragged being its plain version.  For
-// slot b, KV head kv and query t (heads n = kv * group + g):
+// cache, the port's attention.py:cached_attention_plain being its plain
+// version.  For slot b, KV head kv and query t (heads n = kv * group + g):
 //   q is widened to f32 and scaled by 1/sqrt(H) in f32; K and V are read as
 //   the bf16 they are stored in and widened to f32 in registers;
 //   query t sits at pos[b] + t and attends cache positions

@@ -6,14 +6,18 @@ The cache is a pair of preallocated ``[L, B, S_max, KV, H]`` buffers in
 ``compute_dtype``, or, with ``kv_dtype="int8"``, int8 buffers beside
 float32 scale buffers ``[L, B, S_max, KV, 1]``.  Where JAX threads a new
 cache value through ``lax.scan``, this module writes the new K/V rows into
-the buffers in place (:func:`_store_kv`, quantizing them for an int8
+the buffers in place (:func:`_write_kv_at`, quantizing them for an int8
 cache) and loops over layers and steps in Python.
 
-The prompt fills the cache in one batched :func:`_block_step`, then each
-new token is one single-position step.  Attention over the cache is the
-grouped GQA einsum of the reference, in f32 with ``-1e30`` masking; the
-prefill attends the same way, not through the flash kernel, exactly as
-the reference does.
+:func:`cached_layers` is the one layer stack over a cache, for this
+module's one-shot blocks (every row at one start) and for the serving
+engine's ragged steps (each slot at its own start).  The prompt fills the
+cache in one batched :func:`_block_step`, then each new token is one
+single-position step.  Attention over the cache is
+:func:`~.attention.cached_attention`: the grouped GQA einsum of the
+reference, in f32 with ``-1e30`` masking, or on the card, for a bf16 cache
+and few queries a row, the decode-attention kernel.  The prefill does not
+go through the flash kernel, exactly as the reference does not.
 
 Decoding policies: greedy (temperature 0, the default) and temperature
 sampling with optional top-k, drawn from a caller's ``torch.Generator``.
@@ -35,10 +39,11 @@ import torch
 import torch.nn.functional as F
 
 from tputopo_torch import _graphs
+from tputopo_torch.attention import cached_attention
 from tputopo_torch.model import (ModelConfig, _apply_rope, _check_supported,
                                  _layer, _rmsnorm, _rope_tables, check_token_ids,
                                  embed_tokens, lm_head, resolve_device)
-from tputopo_torch.quant import deq_rows, fold_kv_scale, qdot, quantize_kv
+from tputopo_torch.quant import deq_rows, qdot, quantize_kv
 
 
 class KVCache(NamedTuple):
@@ -79,47 +84,68 @@ class KVCache(NamedTuple):
                        routes=picks)
 
 
-def _store_kv(buf: torch.Tensor, sbuf: torch.Tensor | None, kv: torch.Tensor,
-              start: int) -> None:
-    """Write K or V rows [B, T, KV, H] into one layer's cache buffer
-    [B, S_max, KV, H] at position ``start``, in place, quantizing them when
-    the cache is int8 (``sbuf`` is its scale buffer, None for bf16)."""
-    end = start + kv.shape[1]
-    if sbuf is None:
-        buf[:, start:end] = kv
-        return
-    q, s = quantize_kv(kv)
-    buf[:, start:end] = q
-    sbuf[:, start:end] = s
+def _window_start(start: torch.Tensor, size: int, width: int) -> torch.Tensor:
+    """Where ``dynamic_slice`` / ``dynamic_update_slice`` put a ``width``
+    window at ``start`` in an axis of ``size``: a negative start counts
+    once from the end, then clamps into [0, size - width]."""
+    return torch.where(start < 0, start + size, start).clamp(0, size - width)
 
 
-def _attend_cached(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
-                   start: int, group: int, ck_s: torch.Tensor | None = None,
-                   cv_s: torch.Tensor | None = None) -> torch.Tensor:
-    """q [B, T, N, H] (query positions start..start+T-1) against a cache
-    [B, S_max, KV, H]; cache positions beyond each query's own are masked.
-    Returns [B, T, N, H].
+def _write_kv_at(cache_l: torch.Tensor, kv: torch.Tensor,
+                 pos: torch.Tensor) -> None:
+    """Per-row T-wide cache write, in place and as one indexed write:
+    cache_l [B, S, ...] <- kv [B, T, ...] at positions pos[b]..pos[b]+T-1.
+    Like the reference's ``dynamic_update_slice``, a negative start counts
+    once from the end, and a start is then clamped into [0, S - T], so a
+    window that would run past the buffer's end overwrites EARLIER rows:
+    callers keep pos[b] + T <= S for windows that matter (see
+    :func:`~.serving.ragged_block`)."""
+    B, T = kv.shape[:2]
+    idx = _window_start(pos, cache_l.shape[1], T)[:, None] + torch.arange(
+        T, device=pos.device)
+    cache_l[torch.arange(B, device=pos.device)[:, None], idx] = kv
 
-    GQA stays grouped: q reshapes to [B, T, KV, group, H], so head n reads
-    kv head n // group (the repeat order of the forward) and the cache is
-    read at its own KV width.  An int8 cache (scale buffers ``ck_s``/
-    ``cv_s``) folds its per-key-position scale into the logits and its
-    per-value-position scale into the probabilities, both exact."""
-    B, T, N, H = q.shape
-    KV = ck.shape[2]
-    scale = 1.0 / (H ** 0.5)
-    qg = q.float().reshape(B, T, KV, group, H) * scale
-    s = torch.einsum("btkgh,bskh->bkgts", qg, ck.float())
-    if ck_s is not None:
-        s = s * fold_kv_scale(ck_s)
-    k_pos = torch.arange(ck.shape[1], device=q.device)
-    q_pos = start + torch.arange(T, device=q.device)
-    s = s.masked_fill(k_pos[None, :] > q_pos[:, None], -1e30)
-    p = torch.softmax(s, dim=-1)
-    if cv_s is not None:
-        p = p * fold_kv_scale(cv_s)
-    out = torch.einsum("bkgts,bskh->btkgh", p, cv.float())
-    return out.reshape(B, T, N, H).to(q.dtype)
+
+def cached_layers(params: dict, config: ModelConfig, x: torch.Tensor,
+                  cos_bt: torch.Tensor, sin_bt: torch.Tensor, starts: torch.Tensor,
+                  cache: KVCache) -> torch.Tensor:
+    """The layer stack over a KV cache: embedded rows x [B, T, D] whose
+    RoPE rows cos_bt/sin_bt ([B, T, H/2], or [T, H/2] shared by every row)
+    are given, row b's K/V (and, where the cache keeps them, its expert
+    choices) written at its window ``starts[b]`` and its queries masked
+    from its raw start -> the last layer's output [B, T, D].  One start for
+    every row is the one-shot block (:func:`_block_hidden`); one per slot
+    is the serving step (:func:`~.serving.ragged_hidden`)."""
+    c = config
+    B, T = x.shape[:2]
+    group = c.n_heads // c.n_kv_heads
+    for i in range(c.n_layers):
+        layer = _layer(params["layers"], i)
+        h = _rmsnorm(x, layer["attn_norm"], c.norm_eps)
+        q = qdot(h, layer["wq"]).reshape(B, T, c.n_heads, c.head_dim)
+        k = qdot(h, layer["wk"]).reshape(B, T, c.n_kv_heads, c.head_dim)
+        v = qdot(h, layer["wv"]).reshape(B, T, c.n_kv_heads, c.head_dim)
+        q = _apply_rope(q, cos_bt, sin_bt)
+        k = _apply_rope(k, cos_bt, sin_bt)
+        cks = cvs = None
+        if cache.k_scale is not None:
+            cks, cvs = cache.k_scale[i], cache.v_scale[i]
+            k, ks = quantize_kv(k)
+            v, vs = quantize_kv(v)
+            _write_kv_at(cks, ks, starts)
+            _write_kv_at(cvs, vs, starts)
+        _write_kv_at(cache.k[i], k, starts)
+        _write_kv_at(cache.v[i], v, starts)
+        out = cached_attention(q, cache.k[i], cache.v[i], starts, group, cks, cvs)
+        x = x + qdot(out.reshape(B, T, c.n_heads * c.head_dim), layer["wo"])
+        h = _rmsnorm(x, layer["mlp_norm"], c.norm_eps)
+        if cache.routes is None:
+            x = x + serving_ffn(h, layer, c)
+        else:  # the expert choices kept beside the K/V rows
+            y, picks = serving_ffn(h, layer, c, picks=True)
+            _write_kv_at(cache.routes[i], picks.to(torch.int8), starts)
+            x = x + y
+    return x
 
 
 def _block_step(params: dict, config: ModelConfig, tokens: torch.Tensor,
@@ -141,28 +167,12 @@ def _block_hidden(params: dict, config: ModelConfig, tokens: torch.Tensor,
     rest, as XLA drops it from the reference's programs that discard it.
     ``check_ids=False`` skips the id range check, a readback, for ids the
     model picked itself (the speculative loop's blocks)."""
-    c = config
     B, T = tokens.shape
-    group = c.n_heads // c.n_kv_heads
-    x = (embed_tokens(params, tokens, c) if check_ids  # [B, T, D]
-         else deq_rows(params["embed"], tokens, c.compute_dtype))
-    cos_t, sin_t = cos[start:start + T], sin[start:start + T]
-    for i in range(c.n_layers):
-        layer = _layer(params["layers"], i)
-        h = _rmsnorm(x, layer["attn_norm"], c.norm_eps)
-        q = qdot(h, layer["wq"]).reshape(B, T, c.n_heads, c.head_dim)
-        k = qdot(h, layer["wk"]).reshape(B, T, c.n_kv_heads, c.head_dim)
-        v = qdot(h, layer["wv"]).reshape(B, T, c.n_kv_heads, c.head_dim)
-        q = _apply_rope(q, cos_t, sin_t)
-        k = _apply_rope(k, cos_t, sin_t)
-        ks, vs = ((None, None) if cache.k_scale is None
-                  else (cache.k_scale[i], cache.v_scale[i]))
-        _store_kv(cache.k[i], ks, k, start)
-        _store_kv(cache.v[i], vs, v, start)
-        out = _attend_cached(q, cache.k[i], cache.v[i], start, group, ks, vs)
-        x = x + qdot(out.reshape(B, T, c.n_heads * c.head_dim), layer["wo"])
-        x = x + serving_ffn(_rmsnorm(x, layer["mlp_norm"], c.norm_eps), layer, c)
-    return x
+    x = (embed_tokens(params, tokens, config) if check_ids  # [B, T, D]
+         else deq_rows(params["embed"], tokens, config.compute_dtype))
+    starts = torch.full((B,), start, dtype=torch.long, device=tokens.device)
+    return cached_layers(params, config, x, cos[start:start + T],
+                         sin[start:start + T], starts, cache)
 
 
 def serving_ffn(h: torch.Tensor, layer: dict, config: ModelConfig, *,

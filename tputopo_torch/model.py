@@ -206,14 +206,16 @@ def _rope_tables(config: ModelConfig, seq: int, device) -> tuple:
 
 
 def _apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """x: [B, S, N, Hd] -> rotated.  As in the reference, the rotation
-    pairs feature i with feature i + Hd/2 (the two halves), not
-    interleaved (even, odd) pairs."""
+    """x: [B, S, N, Hd] -> rotated, at the positions whose rows cos/sin
+    hold: [S, Hd/2] shared by the batch, or [B, S, Hd/2] per row (the
+    serving step's slots, each at its own position).  As in the reference,
+    the rotation pairs feature i with feature i + Hd/2 (the two halves),
+    not interleaved (even, odd) pairs."""
     dt = x.dtype
     x = x.float()
     x1, x2 = x.chunk(2, dim=-1)
-    c = cos[None, :, None, :]
-    s = sin[None, :, None, :]
+    c = cos.unsqueeze(-2)
+    s = sin.unsqueeze(-2)
     return torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1).to(dt)
 
 

@@ -12,7 +12,8 @@ prefix caching and token streaming.
   merge copy follows, and a decode step rewrites the per-slot vectors with
   masked updates.
 - Admission pads a prompt to the smallest ``prompt_pad`` bucket covering
-  it and runs the block prefill (:func:`.decode._block_step`) on the slot.
+  it and runs the block prefill on the slot: the layer stack over the
+  cache (:func:`.decode.cached_layers`) on its rows.
   Pad positions are harmless: causal masking keeps real positions from
   attending them, the first token reads the logits at ``prompt_len - 1``,
   and per-slot length masks keep them unreachable until decode writes
@@ -58,13 +59,13 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from tputopo_torch import _graphs, _kernels, attention, moe, obs
-from tputopo_torch.decode import KVCache, _block_hidden, _select, serving_ffn
-from tputopo_torch.model import (ModelConfig, _check_supported, _layer,
-                                 _rmsnorm, _rope_tables, check_token_ids,
-                                 embed_tokens, lm_head, resolve_device)
-from tputopo_torch.quant import (compute_bytes, compute_params, deq_rows,
-                                 fold_kv_scale, qdot, quantize_kv)
+from tputopo_torch import _graphs, _kernels, moe, obs
+from tputopo_torch.decode import (KVCache, _block_hidden, _select, _window_start,
+                                  cached_layers)
+from tputopo_torch.model import (ModelConfig, _check_supported, _rope_tables,
+                                 check_token_ids, embed_tokens, lm_head,
+                                 resolve_device)
+from tputopo_torch.quant import compute_bytes, compute_params, deq_rows
 
 
 class DecodeState(NamedTuple):
@@ -120,13 +121,6 @@ def _scalars(state: DecodeState, slot: int, start: int = 0, prompt_len: int = 0,
                         dtype=torch.long)
 
 
-def _window_start(start: torch.Tensor, size: int, width: int) -> torch.Tensor:
-    """Where ``dynamic_slice`` / ``dynamic_update_slice`` put a ``width``
-    window at ``start`` in an axis of ``size``: a negative start counts
-    once from the end, then clamps into [0, size - width]."""
-    return torch.where(start < 0, start + size, start).clamp(0, size - width)
-
-
 def _slot_cache(cache: KVCache, slot: int) -> KVCache:
     """One slot's cache slice as a batch-1 cache: views, so a block
     prefill writes the slot in place.  Every buffer, the int8 scales
@@ -139,9 +133,9 @@ def _slot_prefill(params: dict, whole: KVCache, config: ModelConfig,
                   start: torch.Tensor) -> torch.Tensor:
     """``tokens`` [T] at positions start..start+T-1 through the stack
     against the rows of ``slot`` (a [1] device index) of the cache
-    ``whole``, which are gathered and written back: the reference's
-    ``_block_step`` on ``_slot_cache``, merged back by ``_merge_slot_cache``
-    -> the last layer's output [1, T, D].  ``start`` ([1]) places the
+    ``whole``, which are gathered and written back, as the reference runs
+    its ``_block_step`` on the slot's cache and merges that back -> the
+    last layer's output [1, T, D].  ``start`` ([1]) places the
     window as ``dynamic_slice`` does (:func:`_window_start`) for the RoPE
     rows and the cache write; the causal mask compares with the raw start,
     as the reference's does."""
@@ -151,7 +145,7 @@ def _slot_prefill(params: dict, whole: KVCache, config: ModelConfig,
     cos, sin = _rope_tables(config, S, tokens.device)
     rows = _window_start(start, S, T)[:, None] + torch.arange(T, device=tokens.device)
     x = embed_tokens(params, tokens[None, :], config)
-    x = _ragged_layers(params, config, x, cos[rows], sin[rows], start, cache)
+    x = cached_layers(params, config, x, cos[rows], sin[rows], start, cache)
     for buf, b in zip(whole, cache):
         if b is not None:
             buf.index_copy_(1, slot, b)
@@ -374,88 +368,6 @@ def copy_prefix_jit(state: DecodeState, prefix: KVCache, slot: int, *,
 
 # ---- the ragged decode step -------------------------------------------------
 
-def _apply_rope_at(x: torch.Tensor, cos_b: torch.Tensor,
-                   sin_b: torch.Tensor) -> torch.Tensor:
-    """RoPE for [B, T, N, H] with PER-(slot, offset) positions: cos_b/sin_b
-    are [B, T, H/2] rows gathered at each slot's own positions."""
-    dt = x.dtype
-    x1, x2 = x.float().chunk(2, dim=-1)
-    cb = cos_b[:, :, None, :]
-    sb = sin_b[:, :, None, :]
-    return torch.cat([x1 * cb - x2 * sb, x1 * sb + x2 * cb], dim=-1).to(dt)
-
-
-def _write_kv_at(cache_l: torch.Tensor, kv: torch.Tensor,
-                 pos: torch.Tensor) -> None:
-    """Per-slot T-wide cache write, in place and as one indexed write:
-    cache_l [B, S, KV, H] <- kv [B, T, KV, H] at positions
-    pos[b]..pos[b]+T-1.  Like the reference's ``dynamic_update_slice``, a
-    negative start counts once from the end, and a start is then clamped
-    into [0, S - T], so a window that would run past the buffer's end
-    overwrites EARLIER rows: callers keep pos[b] + T <= S for windows that
-    matter (see :func:`ragged_block`)."""
-    B, T = kv.shape[:2]
-    idx = _window_start(pos, cache_l.shape[1], T)[:, None] + torch.arange(
-        T, device=pos.device)
-    cache_l[torch.arange(B, device=pos.device)[:, None], idx] = kv
-
-
-# The most queries per slot that go to the decode-attention kernel: the
-# decode step and the speculative draft (1), the verify block (gamma + 1).
-# Wider calls, the prefill chunks, keep the einsums.
-DECODE_KERNEL_MAX_T = 16
-
-
-def _decode_kernel_takes(q: torch.Tensor, ck: torch.Tensor,
-                         ck_s: torch.Tensor | None, group: int) -> bool:
-    """Whether :func:`_attend_ragged` sends the call to the decode-attention
-    kernel (``csrc/decode_attn.cu``): CUDA tensors, a bf16 cache (no int8
-    scales) and bf16 queries, at most :data:`DECODE_KERNEL_MAX_T` queries per
-    slot, and a group and head dim the kernel takes."""
-    T, H = q.shape[1], q.shape[3]
-    return (q.device.type == "cuda" and ck_s is None
-            and ck.dtype == q.dtype == torch.bfloat16 and T <= DECODE_KERNEL_MAX_T
-            and attention.decode_kernel_fits(T, group, H))
-
-
-def _attend_ragged(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
-                   pos: torch.Tensor, group: int,
-                   ck_s: torch.Tensor | None = None,
-                   cv_s: torch.Tensor | None = None) -> torch.Tensor:
-    """T queries per slot, each slot at its OWN base position: q
-    [B, T, N, H] against the cache [B, S, KV, H]; slot b's query t sits at
-    pos[b] + t and attends cache positions <= it.  The grouped-GQA einsums
-    of :func:`.decode._attend_cached`, int8 scale folds included, or, where
-    :func:`_decode_kernel_takes` the call, the decode-attention kernel,
-    which reads the cache in place and only up to each slot's position."""
-    if _decode_kernel_takes(q, ck, ck_s, group):
-        return attention._decode_attention_cuda(q, ck, cv, pos)
-    return _attend_ragged_plain(q, ck, cv, pos, group, ck_s, cv_s)
-
-
-def _attend_ragged_plain(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
-                         pos: torch.Tensor, group: int,
-                         ck_s: torch.Tensor | None = None,
-                         cv_s: torch.Tensor | None = None) -> torch.Tensor:
-    """:func:`_attend_ragged` as the reference's einsums over the whole
-    cache, masked with -1e30: the decode-attention kernel's plain version."""
-    B, T, N, H = q.shape
-    KV = ck.shape[2]
-    scale = 1.0 / (H ** 0.5)
-    qg = q.float().reshape(B, T, KV, group, H) * scale
-    s = torch.einsum("btkgh,bskh->bkgts", qg, ck.float())
-    if ck_s is not None:
-        s = s * fold_kv_scale(ck_s)
-    k_pos = torch.arange(ck.shape[1], device=q.device)
-    q_pos = pos[:, None] + torch.arange(T, device=q.device)  # [B, T]
-    s = torch.where(k_pos <= q_pos[:, None, None, :, None], s, -1e30)
-    p = torch.softmax(s, dim=-1)
-    if cv_s is not None:
-        p = p * fold_kv_scale(cv_s)
-    out = torch.einsum("bkgts,bskh->btkgh", p, cv.float())
-    return out.reshape(B, T, N, H).to(q.dtype)
-
-
 @torch.no_grad()
 def ragged_block(params: dict, config: ModelConfig, tokens: torch.Tensor,
                  starts: torch.Tensor, cache: KVCache) -> torch.Tensor:
@@ -468,7 +380,7 @@ def ragged_block(params: dict, config: ModelConfig, tokens: torch.Tensor,
 
     CACHE-WRITE CONTRACT: every slot must satisfy ``starts[b] + T <= S``
     (S = cache buffer length); past it the write's start is clamped to
-    ``S - T`` and overwrites earlier rows (:func:`_write_kv_at`).  Size the
+    ``S - T`` and overwrites earlier rows (:func:`.decode._write_kv_at`).  Size the
     buffer with a margin of at least ``T - 1`` beyond the longest position
     a slot may reach.
 
@@ -492,46 +404,7 @@ def ragged_hidden(params: dict, config: ModelConfig, tokens: torch.Tensor,
     pos_bt = (starts[:, None] + torch.arange(T, device=tokens.device)).clamp(
         0, max_len - 1)
     x = deq_rows(params["embed"], tokens, config.compute_dtype)  # [B, T, D]
-    return _ragged_layers(params, config, x, cos[pos_bt], sin[pos_bt], starts, cache)
-
-
-def _ragged_layers(params: dict, config: ModelConfig, x: torch.Tensor,
-                   cos_bt: torch.Tensor, sin_bt: torch.Tensor, starts: torch.Tensor,
-                   cache: KVCache) -> torch.Tensor:
-    """The layer stack over embedded rows x [B, T, D] whose RoPE rows
-    cos_bt/sin_bt [B, T, H/2] are given, each slot's K/V written at its
-    window ``starts[b]`` and its queries masked from its raw start -> the
-    last layer's output [B, T, D]."""
-    c = config
-    B, T = x.shape[:2]
-    group = c.n_heads // c.n_kv_heads
-    for i in range(c.n_layers):
-        layer = _layer(params["layers"], i)
-        h = _rmsnorm(x, layer["attn_norm"], c.norm_eps)
-        q = qdot(h, layer["wq"]).reshape(B, T, c.n_heads, c.head_dim)
-        k = qdot(h, layer["wk"]).reshape(B, T, c.n_kv_heads, c.head_dim)
-        v = qdot(h, layer["wv"]).reshape(B, T, c.n_kv_heads, c.head_dim)
-        q = _apply_rope_at(q, cos_bt, sin_bt)
-        k = _apply_rope_at(k, cos_bt, sin_bt)
-        cks = cvs = None
-        if cache.k_scale is not None:
-            cks, cvs = cache.k_scale[i], cache.v_scale[i]
-            k, ks = quantize_kv(k)
-            v, vs = quantize_kv(v)
-            _write_kv_at(cks, ks, starts)
-            _write_kv_at(cvs, vs, starts)
-        _write_kv_at(cache.k[i], k, starts)
-        _write_kv_at(cache.v[i], v, starts)
-        out = _attend_ragged(q, cache.k[i], cache.v[i], starts, group, cks, cvs)
-        x = x + qdot(out.reshape(B, T, c.n_heads * c.head_dim), layer["wo"])
-        h = _rmsnorm(x, layer["mlp_norm"], c.norm_eps)
-        if cache.routes is None:
-            x = x + serving_ffn(h, layer, c)
-        else:  # the expert choices kept beside the K/V rows
-            y, picks = serving_ffn(h, layer, c, picks=True)
-            _write_kv_at(cache.routes[i], picks.to(torch.int8), starts)
-            x = x + y
-    return x
+    return cached_layers(params, config, x, cos[pos_bt], sin[pos_bt], starts, cache)
 
 
 @torch.no_grad()
@@ -804,9 +677,6 @@ class ServingEngine:
             tracer.carry("weights", lambda: dict(weights))
             if self.expert_counts is not None:
                 tracer.carry("moe", self.expert_counts.snapshot)
-
-    def _dev(self, a) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a, dtype=np.int64), device=self.device)
 
     def _program(self, name: str, *args, **kw):
         """Run the device program ``name`` (``"admit"``, ``"decode_steps"``,
