@@ -17,19 +17,23 @@ Phases, each printed as one JSON line on stdout:
    timed beside the plain version and one PyTorch library call: the flash
    forward, then the dQ and dK/dV backward kernels, then the serving
    step's decode attention over a bf16 cache (``decode_attn``) at the
-   serving cells' caches, timed beside its byte bound;
+   serving cells' caches, timed beside its byte bound, and the prefill
+   chunks' attention over the same caches (``chunk_attn``), timed beside
+   its bound from operations and bytes;
 4. the inference forward of Llama-3-8B at full width (32 layers, random
    weights from a seed) on 2048 tokens: ``attn_impl="auto"`` must launch
    the flash kernel once per layer, the logits must be finite and agree
    with the einsum path within a stated bound;
 5. greedy KV-cache decoding at full width, twice, with identical tokens,
-   each single-token step through ``decode_attn``, a launch a layer;
+   each single-token step through ``decode_attn``, a launch a layer, and
+   the prompt's prefill through ``chunk_attn``, a launch a layer;
 6. serving at full width, 32 layers: the continuous-batching engine (8
    slots, chunked prefill, one shared prefix, streaming) over a seeded
    stream of 24 requests, twice with identical tokens, every greedy pick
    held against the whole forward and no flash launch, the traced run's
    ``decode_attention.launches`` one a layer for each replayed decode
-   step; then the same
+   step and ``chunk_attention.launches`` one a layer for each replayed
+   admission or prefix; then the same
    stream with int8 weights and an int8 KV cache, and a few requests with
    grouped int4 weights at 4 layers (below), each against its own tree's
    forward;
@@ -251,6 +255,36 @@ DECODE_TS = (1, 4, 16)
 # inside a tile, group 3, one slot; (label, B, S, N, KV, H, T).
 DECODE_ODD = (("group2", 12, 200, 8, 4, 128, 3), ("group3", 12, 300, 12, 4, 128, 5),
               ("one_slot", 1, 1000, 32, 8, 128, 1))
+
+# The chunk-attention kernel against the same einsums: it rounds P to bf16
+# before P V, where the plain version keeps P in f32, as the flash forward
+# rounds it against a plain version that does not, so it takes the flash
+# forward's bf16 tolerance (TOL) element by element.  That tolerance is as
+# large as the outputs themselves over long prefixes (an average of ~P/e
+# unit-normal rows of V, |out| ~ sqrt(e/P): ~0.02 at P 5000), so each
+# query head's H outputs are also held to ||kernel - plain|| / ||plain||
+# <= CHUNK_ROW_REL.  On an H100 80GB HBM3 every case here and in
+# tests/test_torch_chunk_attention.py reads at most 4.2e-3; the plain
+# version with a 128-position tile dropped or stale reads >= 0.51, with
+# the diagonal off by one >= 0.19, with P rounded to e4m3 >= 0.031, where
+# the elementwise tolerance passed the last at every start from 1024 and
+# the diagonal off by one at 3072 and 6144.  Shapes: the serving cells'
+# prefill chunks at Mistral-7B's heads over one slot's cache (the engine
+# gathers the slot), longdoc T 512 over 8192 rows, chat T 128 over 2048, at
+# chunk starts across each cell's prompts; (T, S, starts).
+CHUNK_SHAPES = {"longdoc": (512, 8192, (0, 1024, 2048, 3072, 4096, 5120, 6144)),
+                "chat": (128, 2048, (0, 128, 384, 640, 896))}
+# Beside them, shapes off the main path: (label, B, T, S, N, KV, positions):
+# queries below 0 (uniform rows) for some and for all of a row's queries,
+# a window past S, tile edges, group 3, a whole-bucket admission.
+CHUNK_ODD = (("edges", 3, 128, 1000, 32, 8, (127, 1000 - 128 + 7, -5)),
+             ("uniform", 2, 512, 2048, 32, 8, (-600, 2048 - 512)),
+             ("group3", 3, 200, 700, 12, 4, (0, 129, -3)),
+             ("bucket", 1, 6144, 8192, 32, 8, (0,)),
+             ("short", 2, 17, 300, 32, 8, (128, 300 - 17)))
+CHUNK_ROW_REL = 1e-2
+# The admission programs, each a chunk-attention launch a layer a replay.
+CHUNK_PROGRAMS = ("admit", "prefill_chunk", "admit_final_chunk", "build_prefix_cache")
 
 # Backward kernels against their plain versions.  f32: the reference's grad
 # tolerance (tests/test_attention.py:90), elementwise.  bf16, as
@@ -773,6 +807,109 @@ def phase_decode_attn(att, kernel) -> dict:
             "max_ulps": max(c["max_ulps"] for c in cases), "timing": timing}
 
 
+def chunk_work(pos: torch.Tensor, T: int, S: int, N: int, KV: int, H: int) -> tuple:
+    """(flops, bytes) one chunk-attention call needs: 4 H flops (two
+    products) a head for every (query, attended position) pair, a query
+    below 0 attending all S; q read and out written once, every cache row
+    some query attends read once (K and V, bf16)."""
+    qp = pos[:, None].cpu() + torch.arange(T)
+    last = torch.where(qp < 0, S - 1, qp.clamp(max=S - 1))
+    pairs = int((last + 1).sum())
+    rows = int((last.amax(dim=1) + 1).sum())
+    return 4.0 * H * N * pairs, rows * KV * H * 2 * 2 + 2 * pos.numel() * T * N * H * 2
+
+
+def chunk_bound_ms(pos, T, S, N, KV, H) -> tuple[float, str]:
+    """Least time for one chunk-attention call at the card's bf16 peak and
+    memory rate, and which of the two bounds it."""
+    flops, nbytes = chunk_work(pos, T, S, N, KV, H)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_chunk_attn(att, kernel) -> dict:
+    """The chunk-attention kernel against its plain version's einsums at
+    Mistral's heads, the serving cells' chunk shapes and CHUNK_ODD's, within
+    the flash forward's bf16 tolerance element by element and CHUNK_ROW_REL
+    a query head; two launches bit for bit.  Then
+    timed at each cell's shape and chunk starts, as captured graphs replay
+    it (:func:`graph_ms`), beside its bound, the einsums and masked SDPA (a
+    yardstick the port never calls)."""
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    N, KV, H = DECODE_HEADS
+    rtol, atol = TOL[torch.bfloat16]
+    shapes = [(cell, 1, T, S, N, KV, (p,)) for cell, (T, S, starts) in CHUNK_SHAPES.items()
+              for p in starts] + [(c, B, T, S, n, kv, p) for c, B, T, S, n, kv, p in CHUNK_ODD]
+    cases = []
+    for cell, B, T, S, n, kv, positions in shapes:
+        ck, cv = (torch.randn((B, S, kv, H), generator=gen, device="cuda",
+                              dtype=torch.bfloat16) for _ in range(2))
+        q = torch.randn((B, T, n, H), generator=gen, device="cuda", dtype=torch.bfloat16)
+        pos = torch.tensor(positions, device="cuda")
+        before = kernel.launches
+        got = att._chunk_attention_cuda(q, ck, cv, pos)
+        again = att._chunk_attention_cuda(q, ck, cv, pos)
+        ref = att.cached_attention_plain(q, ck, cv, pos, n // kv)
+        torch.cuda.synchronize()
+        diff = got.float() - ref.float()
+        err = diff.abs()
+        rec = {"phase": "chunk_attn_vs_plain", "cell": cell, "shape": [B, T, S, n, kv, H],
+               "positions": list(positions), "max_abs_err": err.max().item(),
+               "max_err_over_tol": (err / (atol + rtol * ref.float().abs())).max().item(),
+               "tolerance": {"atol": atol, "rtol": rtol},
+               "max_row_rel_err": (diff.norm(dim=-1) / ref.float().norm(dim=-1)).max().item(),
+               "bound_row_rel": CHUNK_ROW_REL,
+               "repeat_bitwise": bool(torch.equal(got, again)),
+               "launches": kernel.launches - before}
+        rec["within"] = (rec["max_err_over_tol"] <= 1.0
+                         and rec["max_row_rel_err"] <= CHUNK_ROW_REL)
+        emit(rec)
+        check(bool(torch.isfinite(got.float()).all()), "chunk_attn output not finite")
+        check(rec["within"], f"chunk_attn disagrees with the einsums: {rec}")
+        check(rec["repeat_bitwise"], f"chunk_attn: two launches differ: {rec}")
+        check(rec["launches"] == 2, f"chunk_attn: {rec['launches']} launches, want 2")
+        cases.append(rec)
+        del ck, cv, q, got, again, ref, diff, err
+
+    timing = {}
+    for cell, (T, S, starts) in CHUNK_SHAPES.items():
+        ck, cv = (torch.randn((1, S, KV, H), generator=gen, device="cuda",
+                              dtype=torch.bfloat16) for _ in range(2))
+        q = torch.randn((1, T, N, H), generator=gen, device="cuda", dtype=torch.bfloat16)
+        # SDPA's layout [B, heads, S, H], copied outside the timed calls
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, ck, cv))
+        rows = []
+        for p in starts:
+            pos = torch.tensor([p], device="cuda")
+            mask = torch.arange(S, device="cuda") <= p + torch.arange(T, device="cuda")[:, None]
+            kernel_ms = graph_ms(lambda: att._chunk_attention_cuda(q, ck, cv, pos))
+            plain_ms = graph_ms(lambda: att.cached_attention_plain(q, ck, cv, pos, N // KV),
+                                calls=4)
+            library_ms = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True), calls=4)
+            bound_ms, bound_by = chunk_bound_ms(pos, T, S, N, KV, H)
+            flops, nbytes = chunk_work(pos, T, S, N, KV, H)
+            rows.append({"start": p, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                         "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                         "flops": flops, "bytes": nbytes, "bound_share": bound_ms / kernel_ms})
+        total = {k: sum(r[k] for r in rows) for k in ("kernel_ms", "plain_ms", "library_ms",
+                                                      "bound_ms")}
+        timing[cell] = {"shape": [1, T, S, N, KV, H], "starts": rows, **total,
+                        "bound_share": total["bound_ms"] / total["kernel_ms"]}
+        emit({"phase": "chunk_attn_timing", "cell": cell, **timing[cell],
+              "library": "scaled_dot_product_attention, boolean mask, enable_gqa"})
+        del ck, cv, q, qt, kt, vt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"name": kernel.name, "route": "cuda",
+            "source": kernel.source.relative_to(REPO).as_posix(),
+            "replaces": "none: tputopo/workloads/serving.py:_attend_ragged's einsums",
+            "max_err_over_tol": max(c["max_err_over_tol"] for c in cases),
+            "max_row_rel_err": max(c["max_row_rel_err"] for c in cases),
+            "timing": {cell: {k: v for k, v in t.items() if k != "starts"}
+                       for cell, t in timing.items()}}
+
+
 def phase_forward(tt, kernels) -> tuple:
     """Llama-3-8B inference forward at full width, 2048 tokens.  Returns
     (params, config, tokens, flash launches of the counted forward)."""
@@ -829,21 +966,22 @@ def phase_forward(tt, kernels) -> tuple:
 def phase_generate(tt, kernels, params, cfg) -> tuple:
     """Greedy KV-cache decode at full width, twice; each single-token step
     attends through the decode-attention kernel, a launch a layer, and the
-    128-token prefill through the einsums.  Returns (the prompt, the
-    kernel's launches of one run)."""
+    128-token prefill through the chunk-attention kernel, a launch a layer.
+    Returns (the prompt, the two kernels' launches of one run)."""
     B, P, new = GEN_BATCH, GEN_PROMPT, GEN_NEW
     prompt = torch.randint(0, cfg.vocab_size, (B, P), device="cuda",
                            generator=torch.Generator(device="cuda").manual_seed(2))
+    attn = (tt._kernels.DECODE_ATTN, tt._kernels.CHUNK_ATTN)
     runs = []
     for _ in range(2):
         reset(kernels)
-        before = tt._kernels.DECODE_ATTN.launches
+        before = [k.launches for k in attn]
         t0 = time.perf_counter()
         out = tt.generate(params, prompt, cfg, max_new=new)
         torch.cuda.synchronize()
         runs.append((out, time.perf_counter() - t0,
-                     tt._kernels.DECODE_ATTN.launches - before))
-    (a, _, _), (b, dt, decode_attn) = runs
+                     [k.launches - n for k, n in zip(attn, before)]))
+    (a, _, _), (b, dt, (decode_attn, chunk_attn)) = runs
     check(tuple(a.shape) == (B, P + new), f"generate shape {tuple(a.shape)}")
     check(bool(((a >= 0) & (a < cfg.vocab_size)).all()), "generated ids out of range")
     check(bool(torch.equal(a[:, :P], prompt)), "generate changed the prompt")
@@ -857,14 +995,16 @@ def phase_generate(tt, kernels, params, cfg) -> tuple:
     emit({"phase": "generate", "model": "llama3_8b", "batch": B, "prompt": P,
           "max_new": new, "wall_s": dt, "new_tokens_per_s": B * new / dt,
           "launches": gen_launches, "decode_attn_launches": decode_attn,
-          "identical_runs": True,
+          "chunk_attn_launches": chunk_attn, "identical_runs": True,
           "vs_forward_top1": top1, "vs_forward_max_gap": gap,
           "bound_max_gap": GEN_GAP})
     check(gap <= GEN_GAP, f"a generated token is not the forward's greedy pick: "
                           f"logit gap {gap} > {GEN_GAP}")
     check(decode_attn == cfg.n_layers * (new - 1),
           f"generate: decode_attn launches {decode_attn}, want {cfg.n_layers} a step")
-    return prompt, decode_attn
+    check(chunk_attn == cfg.n_layers,
+          f"generate: chunk_attn launches {chunk_attn}, want {cfg.n_layers} a prefill")
+    return prompt, decode_attn, chunk_attn
 
 
 def serve_stream(vocab: int, seed: int, n: int, prompt: tuple, new: tuple,
@@ -1008,6 +1148,9 @@ def phase_serve(tt, kernels, params, cfg) -> tuple:
     traced = tracer.export()
     decode_attn = {"launches": traced["decode_attention"]["launches"],
                    "decode_steps_replayed": traced["programs"]["replays"].get("decode_step", 0)}
+    chunk_attn = {"launches": traced["chunk_attention"]["launches"],
+                  "admissions_replayed": sum(traced["programs"]["replays"].get(n, 0)
+                                             for n in CHUNK_PROGRAMS)}
     grouped_launches = traced["grouped_mm"]["launches"]
     peak = torch.cuda.max_memory_allocated() / 1e9
     a, b = runs
@@ -1018,6 +1161,9 @@ def phase_serve(tt, kernels, params, cfg) -> tuple:
     check(decode_attn["decode_steps_replayed"] > 0 and decode_attn["launches"]
           == cfg.n_layers * decode_attn["decode_steps_replayed"],
           f"serve: decode_attn launches {decode_attn}, want {cfg.n_layers} a replayed step")
+    check(chunk_attn["admissions_replayed"] > 0 and chunk_attn["launches"]
+          == cfg.n_layers * chunk_attn["admissions_replayed"],
+          f"serve: chunk_attn launches {chunk_attn}, want {cfg.n_layers} a replayed admission")
     check(grouped_launches == 0 and "moe" not in traced,
           f"serve: the dense engine ran the routed expert layer: {grouped_launches} launches")
     vs = picks_vs_forward(tt, params, cfg, b["rows"], b["plens"])
@@ -1032,7 +1178,8 @@ def phase_serve(tt, kernels, params, cfg) -> tuple:
            "ttft_p50_s": [a["ttft_p50_s"], b["ttft_p50_s"]],
            "ttft_p95_s": [a["ttft_p95_s"], b["ttft_p95_s"]],
            "metrics": b["metrics"], "identical_runs": True, "launches": launches,
-           "decode_attn_traced": decode_attn, "grouped_mm_launches": grouped_launches,
+           "decode_attn_traced": decode_attn, "chunk_attn_traced": chunk_attn,
+           "grouped_mm_launches": grouped_launches,
            "peak_mem_gb": peak, "programs": [a["programs"], b["programs"]],
            **vs, "bound_max_gap": GEN_GAP,
            "ops_per_decode_step": ops_per_decode_step(params, cfg),
@@ -1040,7 +1187,7 @@ def phase_serve(tt, kernels, params, cfg) -> tuple:
     emit(rec)
     check(vs["vs_forward_max_gap"] <= GEN_GAP,
           f"serve: a pick is not the forward's greedy pick: {rec['vs_forward_max_gap']}")
-    return (prefix, reqs), launches, runs, decode_attn
+    return (prefix, reqs), launches, runs, decode_attn, chunk_attn
 
 
 def phase_serve_int8(tt, params, cfg, stream) -> None:
@@ -1056,9 +1203,10 @@ def phase_serve_int8(tt, params, cfg, stream) -> None:
         ("int8_to_bf16", qp["layers"]["w_gate"]["int8"]))}
     qcfg = dataclasses.replace(cfg, kv_dtype="int8")
     torch.cuda.reset_peak_memory_stats()
-    decode_attn = tt._kernels.DECODE_ATTN.launches
+    decode_attn, chunk_attn = tt._kernels.DECODE_ATTN.launches, tt._kernels.CHUNK_ATTN.launches
     run = run_engine(tt, qp, qcfg, prefix, reqs)
     decode_attn = tt._kernels.DECODE_ATTN.launches - decode_attn
+    chunk_attn = tt._kernels.CHUNK_ATTN.launches - chunk_attn
     peak = torch.cuda.max_memory_allocated() / 1e9
     check_rows(run["rows"], run["plens"], reqs, prefix, cfg.vocab_size, "serve_int8")
     vs = picks_vs_forward(tt, qp, cfg, run["rows"], run["plens"])
@@ -1073,12 +1221,15 @@ def phase_serve_int8(tt, params, cfg, stream) -> None:
            "streamed_bytes_int8": int8_b, "byte_ratio": int8_b / raw_b,
            "w_gate_layer_cast_ms": cast_ms,
            "ops_per_decode_step": ops, "decode_attn_launches": decode_attn,
+           "chunk_attn_launches": chunk_attn,
            "bound_byte_ratio": SERVE_INT8_BYTE_RATIO, "peak_mem_gb": peak, **vs,
            "bound_max_gap": SERVE_INT8_GAP, "seconds": time.perf_counter() - t_phase}
     emit(rec)
     check(int8_b / raw_b < SERVE_INT8_BYTE_RATIO, f"serve_int8: byte ratio {rec}")
     check(decode_attn == 0, f"serve_int8: the int8 cache launched decode_attn {decode_attn} "
                             "times; it keeps the einsums")
+    check(chunk_attn == 0, f"serve_int8: the int8 cache launched chunk_attn {chunk_attn} "
+                           "times; it keeps the einsums")
     check(vs["vs_forward_max_gap"] <= SERVE_INT8_GAP,
           f"serve_int8: a pick is off the int8 forward's: {rec['vs_forward_max_gap']}")
 
@@ -3172,18 +3323,19 @@ def main() -> int:
     entries = [timed("flash", phase_flash, att, _kernels.FLASH_FWD),
                *timed("flash_bwd", phase_flash_bwd, att)]
     decode_entry = timed("decode_attn", phase_decode_attn, att, _kernels.DECODE_ATTN)
+    chunk_entry = timed("chunk_attn", phase_chunk_attn, att, _kernels.CHUNK_ATTN)
     timed("repairs", phase_repairs, tt, att, _kernels.FLASH)
     gc.collect()
     torch.cuda.empty_cache()
     params, cfg, tokens, fwd_launches = timed("forward", phase_forward, tt,
                                               _kernels.FLASH)
-    prompt, gen_decode_attn = timed("generate", phase_generate, tt, _kernels.FLASH,
-                                    params, cfg)
+    prompt, gen_decode_attn, gen_chunk_attn = timed("generate", phase_generate, tt,
+                                                    _kernels.FLASH, params, cfg)
     timed("profile_forward", lambda: emit(device_profile(
         "forward", lambda: tt.forward(params, tokens, cfg))))
     timed("profile_generate", lambda: emit(device_profile(
         "generate", lambda: tt.generate(params, prompt, cfg, max_new=GEN_NEW))))
-    stream, serve_launches, serve_runs, serve_decode_attn = timed(
+    stream, serve_launches, serve_runs, serve_decode_attn, serve_chunk_attn = timed(
         "serve", phase_serve, tt, _kernels.FLASH, params, cfg)
     prefix, reqs = stream
     serve_profile = timed("profile_serve", profile_serve, tt, params, cfg, prefix, reqs)
@@ -3314,8 +3466,12 @@ def main() -> int:
     decode_entry["launches_by_path"] = {"serve_decode_step_replay": (
         serve_decode_attn["launches"] / serve_decode_attn["decode_steps_replayed"]),
         "generate": gen_decode_attn}
+    # one admission's replay: a launch a layer; one generate call's prefill
+    chunk_entry["launches_by_path"] = {"serve_admission_replay": (
+        serve_chunk_attn["launches"] / serve_chunk_attn["admissions_replayed"]),
+        "generate": gen_chunk_attn}
     emit({"phase": "seconds", **seconds})
-    emit({"kernels": entries + [decode_entry]})
+    emit({"kernels": entries + [decode_entry, chunk_entry]})
     print(name, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -177,6 +177,40 @@ def test_decode_launch_passes_the_c_parameters_in_order(monkeypatch):
     assert named["out"].shape == named["q"].shape and named["out"].dtype == torch.bfloat16
 
 
+def test_chunk_launch_passes_the_c_parameters_in_order(monkeypatch):
+    B, T, S, N, KV, H = 2, 40, 300, 12, 4, 128
+    gen = torch.Generator().manual_seed(2)
+    named = {"q": torch.randn((B, T, N, H), generator=gen).to(torch.bfloat16),
+             "ck": torch.randn((B, S, KV, H), generator=gen).to(torch.bfloat16),
+             "cv": torch.randn((B, S, KV, H), generator=gen).to(torch.bfloat16),
+             "pos": torch.tensor([0, -3])}
+    ints = {"B": B, "T": T, "S": S, "N": N, "KV": KV, "H": H}
+    seen = {}
+
+    def record(kern, args, device, what):
+        assert kern is _kernels.CHUNK_ATTN and device == named["q"].device
+        seen["args"] = args
+
+    monkeypatch.setattr(att, "_call", record)
+    named["out"] = att._chunk_attention_cuda(named["q"], named["ck"], named["cv"],
+                                             named["pos"])
+    _, params = c_params(_kernels.CHUNK_ATTN.source)
+    assert [kind for kind, _ in params[:-1]] == ["pointer"] * 5 + ["int"] * 6 + ["float"]
+    names = [name for _, name in params[:-1]]
+    assert names == ["q", "ck", "cv", "pos", "out", *_kernels.CHUNK_ATTN.ints, "scale"]
+    assert list(seen["args"]) == ([named[n].data_ptr() for n in names[:5]]
+                                  + [ints[n] for n in names[5:11]] + [1.0 / H ** 0.5])
+    assert named["out"].shape == named["q"].shape and named["out"].dtype == torch.bfloat16
+
+
+def test_chunk_limits_match_the_source():
+    """The wrapper's group and head-dim limits are the source's numbers."""
+    src = _kernels.CHUNK_ATTN.source.read_text()
+    assert re.search(r"constexpr int ROWS = (\d+);", src).group(1) == str(att.CHUNK_ROWS)
+    assert re.search(r"constexpr int HEAD_DIM = (\d+);", src).group(1) == str(
+        att.CHUNK_HEAD_DIM)
+
+
 def test_decode_scratch_matches_the_sources_split():
     """The wrapper sizes the per-split scratch from ``DECODE_SPLIT``; the
     kernel indexes it by its own ``SPLIT``: they must be one number, as

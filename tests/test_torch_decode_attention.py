@@ -2,8 +2,10 @@
 
 ``attention.cached_attention`` sends a call to ``csrc/decode_attn.cu`` when
 the code can see that the kernel takes it (CUDA, a bf16 cache, at most 16
-queries per slot, a group and head dim the kernel takes) and keeps the
-einsums otherwise.  Held here: that rule, that the serving step and the
+queries per slot, a group and head dim the kernel takes), else to
+``csrc/chunk_attn.cu`` where that kernel takes it
+(``tests/test_torch_chunk_attention.py``), and keeps the einsums
+otherwise.  Held here: that rule, that the serving step and the
 one-shot paths (``generate``, ``build_prefix_cache``) reach the same
 dispatcher, the wrapper's refusals, the CPU path bit for bit the einsums it
 always was, and the launch count a traced engine exports.  The kernel
@@ -61,22 +63,32 @@ def _stand_ins(device, cache, T, group=4, H=128, q_dtype=BF16, KV=8):
 
 
 @pytest.mark.parametrize("device,cache,scaled,T,group,H,q_dtype,want", [
-    (CUDA, BF16, False, 1, 4, 128, BF16, True),     # the decode step, the draft
-    (CUDA, BF16, False, 5, 4, 128, BF16, True),     # the verify block, gamma 4
-    (CUDA, BF16, False, 16, 4, 128, BF16, True),    # the widest block it takes
-    (CUDA, BF16, False, 17, 4, 128, BF16, False),   # wider: the einsums
-    (CUDA, BF16, False, 128, 4, 128, BF16, False),  # chat's prefill chunk
-    (CUDA, BF16, False, 512, 4, 128, BF16, False),  # longdoc's prefill chunk
-    (CUDA, INT8, True, 1, 4, 128, BF16, False),     # the int8 cache
-    (CUDA, F32, False, 1, 4, 128, F32, False),      # an f32 model
-    (CUDA, BF16, False, 1, 4, 64, BF16, False),     # a head dim it does not take
-    (CUDA, BF16, False, 16, 8, 128, BF16, False),   # 128 queries a KV head
-    (CPU, BF16, False, 1, 4, 128, BF16, False),     # the CPU: the plain version
+    (CUDA, BF16, False, 1, 4, 128, BF16, "decode"),    # the decode step, the draft
+    (CUDA, BF16, False, 5, 4, 128, BF16, "decode"),    # the verify block, gamma 4
+    (CUDA, BF16, False, 16, 4, 128, BF16, "decode"),   # the widest block it takes
+    (CUDA, BF16, False, 17, 4, 128, BF16, "chunk"),    # wider: the chunk kernel
+    (CUDA, BF16, False, 128, 4, 128, BF16, "chunk"),   # chat's prefill chunk
+    (CUDA, BF16, False, 512, 4, 128, BF16, "chunk"),   # longdoc's prefill chunk
+    (CUDA, BF16, False, 6144, 4, 128, BF16, "chunk"),  # a whole-bucket admission
+    (CUDA, BF16, False, 17, 3, 128, BF16, "chunk"),    # a group of 3
+    (CUDA, INT8, True, 1, 4, 128, BF16, None),         # the int8 cache
+    (CUDA, INT8, True, 128, 4, 128, BF16, None),
+    (CUDA, F32, False, 1, 4, 128, F32, None),          # an f32 model
+    (CUDA, F32, False, 128, 4, 128, F32, None),
+    (CUDA, BF16, False, 1, 4, 64, BF16, None),         # a head dim neither takes
+    (CUDA, BF16, False, 128, 4, 64, BF16, None),
+    (CUDA, BF16, False, 16, 8, 128, BF16, "chunk"),    # 128 queries a KV head
+    (CPU, BF16, False, 1, 4, 128, BF16, None),         # the CPU: the plain version
+    (CPU, BF16, False, 128, 4, 128, BF16, None),
 ])
 def test_dispatch_rule(device, cache, scaled, T, group, H, q_dtype, want):
+    """Which kernel :func:`cached_attention` takes: the decode kernel where
+    its rule holds, else the chunk kernel where its rule holds, else none."""
     q, ck = _stand_ins(device, cache, T, group, H, q_dtype)
     ck_s = object() if scaled else None
-    assert att.decode_kernel_takes(q, ck, ck_s, group) is want
+    decode = att.decode_kernel_takes(q, ck, ck_s, group)
+    chunk = att.chunk_kernel_takes(q, ck, ck_s, group)
+    assert ("decode" if decode else "chunk" if chunk else None) == want
 
 
 def _layer(B=3, T=1, S=40, N=8, KV=2, H=16, dtype=BF16, seed=0):
@@ -87,15 +99,15 @@ def _layer(B=3, T=1, S=40, N=8, KV=2, H=16, dtype=BF16, seed=0):
     return q, ck, cv, pos, N // KV
 
 
-@pytest.mark.parametrize("T", [1, 4, 16, 128])
+@pytest.mark.parametrize("T", [1, 4, 16, 128, 512])
 @pytest.mark.parametrize("dtype", [BF16, F32], ids=str)
 def test_cpu_path_is_the_old_einsum_bit_for_bit(T, dtype):
     q, ck, cv, pos, group = _layer(B=5, T=T, dtype=dtype)
-    before = _kernels.DECODE_ATTN.launches
+    before = (_kernels.DECODE_ATTN.launches, _kernels.CHUNK_ATTN.launches)
     got = att.cached_attention(q, ck, cv, pos, group)
     assert torch.equal(got, _old_einsum(q, ck, cv, pos, group))
     assert torch.equal(got, att.cached_attention_plain(q, ck, cv, pos, group))
-    assert _kernels.DECODE_ATTN.launches == before
+    assert (_kernels.DECODE_ATTN.launches, _kernels.CHUNK_ATTN.launches) == before
 
 
 def test_cpu_int8_path_is_the_old_einsum_bit_for_bit():
@@ -226,37 +238,80 @@ def test_wrapper_takes_a_sound_call():
 
 # ---- the count a traced engine exports ---------------------------------------
 
-class _StandInGraph:
-    """Replays by re-running the body on the static inputs."""
+class _StandInPrograms:
+    """CPU stand-ins of what a capture on the card does, sharing one
+    ``mode``: "capture" while a program's body is recorded, "replay" while
+    its graph runs it again, where a graph runs the kernels and none of
+    their wrappers' host code."""
 
-    def __init__(self, body, inputs):
-        self.body, self.inputs = body, inputs
+    def __init__(self):
+        self.mode = None
 
-    def replay(self):
-        self.body(*self.inputs)
+    def capturing(self, device) -> bool:
+        return self.mode == "capture"
 
+    def run_as(self, mode, body, inputs):
+        self.mode = mode
+        try:
+            return body(*inputs)
+        finally:
+            self.mode = None
 
-def _capture_counting(self, name, body, device, inputs, mutated, generator, bound_sig):
-    """``Programs._capture`` on the CPU whose entry says each replay of a
-    decode program launches the decode kernel once a layer a step, as a
-    capture on the card records; the stand-in records none for the
-    admissions."""
-    static_in = tuple(t.clone() for t in inputs)
-    saved = [t.clone() for t in _graphs.tensors(mutated)]
-    outputs = body(*static_in)
-    for t, s in zip(_graphs.tensors(mutated), saved):
-        t.copy_(s)
-    self.captures[name] += 1
-    steps = {"decode_step": 1, "decode_steps": 2}.get(name, 0)
-    launches = {_kernels.DECODE_ATTN: CFG.n_layers * steps} if steps else {}
-    return _graphs._Entry(bound_sig, _StandInGraph(body, static_in), static_in, outputs,
-                          launches, generator)
+    def capture(self):
+        """``Programs._capture``: the body runs once as a capture records
+        it (the wrappers count into ``captured``), what it wrote is put
+        back, and the entry keeps the launches it recorded."""
+        stand_in = self
+
+        class Graph:
+            def __init__(self, body, inputs):
+                self.body, self.inputs = body, inputs
+
+            def replay(self):
+                stand_in.run_as("replay", self.body, self.inputs)
+
+        def _capture(programs, name, body, device, inputs, mutated, generator, bound_sig):
+            static_in = tuple(t.clone() for t in inputs)
+            saved = [t.clone() for t in _graphs.tensors(mutated)]
+            before = {k: k.captured for k in _kernels.COUNTED}
+            outputs = stand_in.run_as("capture", body, static_in)
+            for t, s in zip(_graphs.tensors(mutated), saved):
+                t.copy_(s)
+            programs.captures[name] += 1
+            launches = {k: k.captured - n for k, n in before.items() if k.captured != n}
+            return _graphs._Entry(bound_sig, Graph(body, static_in), static_in, outputs,
+                                  launches, generator)
+        return _capture
+
+    def wrapper(self, kernel):
+        """A kernel's wrapper: the plain version, counted as
+        ``attention._call`` counts a launch (a replay runs no wrapper)."""
+        def wrapper(q, ck, cv, pos):
+            if self.mode != "replay":
+                att._count(kernel, q.device)
+            return att.cached_attention_plain(q, ck, cv, pos, q.shape[2] // ck.shape[2])
+        return wrapper
+
+    def install(self, monkeypatch):
+        """Graph every program through these stand-ins, with both cache
+        kernels' rules as on the card (their device, dtype and head-dim
+        checks left out) and both wrappers the plain version, counted."""
+        monkeypatch.setattr(_graphs, "graphed", lambda device: True)
+        monkeypatch.setattr(_graphs, "capturing", self.capturing)
+        monkeypatch.setattr(_graphs.Programs, "_capture", self.capture())
+        monkeypatch.setattr(att, "decode_kernel_takes",
+                            lambda q, ck, ck_s, group: ck_s is None and q.shape[1] <= 16)
+        monkeypatch.setattr(att, "chunk_kernel_takes", lambda q, ck, ck_s, group: ck_s is None)
+        monkeypatch.setattr(att, "_decode_attention_cuda", self.wrapper(_kernels.DECODE_ATTN))
+        monkeypatch.setattr(att, "_chunk_attention_cuda", self.wrapper(_kernels.CHUNK_ATTN))
 
 
 @pytest.mark.parametrize("steps_per_tick", [1, 2])
 def test_traced_engine_exports_decode_launches(steps_per_tick, monkeypatch):
-    monkeypatch.setattr(_graphs, "graphed", lambda device: True)
-    monkeypatch.setattr(_graphs.Programs, "_capture", _capture_counting)
+    """Every replay of a decode program launches the decode kernel once a
+    layer a step, and so does every admission here (chunks of 4 queries,
+    which the decode kernel takes); the chunk kernel is never launched."""
+    _StandInPrograms().install(monkeypatch)
     params = tm.init_params(CFG, 0, device="cpu")
     tracer = obs.Tracer()
     eng = ts.ServingEngine(params, CFG, slots=2, max_len=32, prompt_pad=(8,),
@@ -267,10 +322,13 @@ def test_traced_engine_exports_decode_launches(steps_per_tick, monkeypatch):
     eng.run()
     out = tracer.export()
     name = "decode_step" if steps_per_tick == 1 else "decode_steps"
-    replays = out["programs"]["replays"][name]
-    assert replays * steps_per_tick == eng.metrics["decode_steps"] > 0
-    want = CFG.n_layers * steps_per_tick * replays
+    replays = out["programs"]["replays"]
+    assert replays[name] * steps_per_tick == eng.metrics["decode_steps"] > 0
+    admissions = sum(replays.get(n, 0) for n in ("admit", "prefill_chunk", "admit_final_chunk"))
+    assert admissions > 0
+    want = CFG.n_layers * (steps_per_tick * replays[name] + admissions)
     assert out["decode_attention"] == {"launches": want}
+    assert out["chunk_attention"] == {"launches": 0}
     assert eng.programs.launches == {_kernels.DECODE_ATTN.name: want}
     assert _kernels.DECODE_ATTN.launches == before + want
 

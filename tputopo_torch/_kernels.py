@@ -123,7 +123,10 @@ FLASH = (FLASH_FWD, FLASH_DQ, FLASH_DKV)
 # q ck cv pos out part_acc part_ml
 DECODE_ATTN = Kernel("decode_attn", "decode_attn.cu", n_ptrs=7,
                      ints=("B", "T", "S", "N", "KV", "H"))
-KERNELS = (*FLASH, DECODE_ATTN)
+# q ck cv pos out
+CHUNK_ATTN = Kernel("chunk_attn", "chunk_attn.cu", n_ptrs=5,
+                    ints=("B", "T", "S", "N", "KV", "H"))
+KERNELS = (*FLASH, DECODE_ATTN, CHUNK_ATTN)
 # Instrumentation, not one of the port's kernels: it computes nothing of
 # the reference's and replaces no kernel of it, so it lives apart from them
 # (``csrc/obs``).  acc, the running sum of the GPU's global timer that a

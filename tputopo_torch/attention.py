@@ -11,11 +11,14 @@ function, with the same dtype casts, that the tests hold against the JAX
 package and that ``chip_smoke.py`` holds the kernels against on the card.
 Nothing falls back: a CUDA call that cannot launch its kernel raises.
 
-Attention over a KV cache, :func:`cached_attention`, has a kernel too,
-``csrc/decode_attn.cu`` (:func:`_decode_attention_cuda`), where the
-reference leaves plain einsums to XLA: :func:`decode_kernel_takes` says
-which calls take it, and the rest run :func:`cached_attention_plain`, its
-plain version, on the card as on the CPU.
+Attention over a KV cache, :func:`cached_attention`, has two kernels,
+where the reference leaves plain einsums to XLA: ``csrc/decode_attn.cu``
+(:func:`_decode_attention_cuda`) for a few queries a row, the decode and
+speculative steps, and ``csrc/chunk_attn.cu`` (:func:`_chunk_attention_cuda`)
+for wider blocks, the prefill chunks and admissions.
+:func:`decode_kernel_takes` and :func:`chunk_kernel_takes` say which calls
+take them, in that order; the rest (an int8 cache, an f32 model, the CPU)
+run :func:`cached_attention_plain`, their plain version.
 
 :func:`flash_attention` is differentiable through one
 ``torch.autograd.Function``.  Its forward saves ``(q, k, v, o, lse)`` as the
@@ -182,6 +185,12 @@ def _call(kernel: _kernels.Kernel, args: tuple, device, what: str) -> None:
         err = kernel.entry()(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{kernel.name} kernel launch failed: cudaError {err} ({what})")
+    _count(kernel, device)
+
+
+def _count(kernel: _kernels.Kernel, device) -> None:
+    """Count one launch of ``kernel`` on ``device``: in ``captured`` while a
+    CUDA graph capture records it, else in ``launches``."""
     if _graphs.capturing(device):
         kernel.captured += 1
     else:
@@ -226,11 +235,14 @@ def _flash_dkv_cuda(q, k, v, do, lse, d, *, causal):
 # ---- attention over a KV cache ----------------------------------------------
 #
 # ``csrc/decode_attn.cu`` computes :func:`cached_attention` over a bf16 cache
-# for few queries a row; :func:`cached_attention_plain` is its plain version.
+# for few queries a row, ``csrc/chunk_attn.cu`` for the rest;
+# :func:`cached_attention_plain` is their plain version.
 
 DECODE_SPLIT = 256              # cache positions per block: ``SPLIT`` in the source
 DECODE_MAX_QUERIES = 64         # T * group queries per KV head: ``MAX_Q``
 DECODE_HEAD_DIM = 128           # ``HEAD_DIM``
+CHUNK_ROWS = 128                # query rows a block, group * positions: ``ROWS``
+CHUNK_HEAD_DIM = 128            # ``HEAD_DIM``
 
 
 def decode_kernel_fits(T: int, group: int, H: int) -> bool:
@@ -252,6 +264,25 @@ def decode_kernel_takes(q: torch.Tensor, ck: torch.Tensor,
             and decode_kernel_fits(T, group, H))
 
 
+def chunk_kernel_fits(group: int, H: int) -> bool:
+    """Whether the chunk-attention kernel takes GQA ``group`` and head dim
+    ``H``: the group's heads of one KV head fit a block's query rows."""
+    return 1 <= group <= CHUNK_ROWS and H == CHUNK_HEAD_DIM
+
+
+def chunk_kernel_takes(q: torch.Tensor, ck: torch.Tensor,
+                       ck_s: torch.Tensor | None, group: int) -> bool:
+    """Whether the chunk-attention kernel can take a call to
+    :func:`cached_attention` (which asks :func:`decode_kernel_takes` first):
+    CUDA tensors, a bf16 cache (no int8 scales) and bf16 queries, N a
+    multiple of the cache's KV heads, and a group and head dim the kernel
+    takes; any number of queries a row."""
+    N, H = q.shape[2], q.shape[3]
+    return (q.device.type == "cuda" and ck_s is None
+            and ck.dtype == q.dtype == torch.bfloat16
+            and N == group * ck.shape[2] and chunk_kernel_fits(group, H))
+
+
 def cached_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
                      pos: torch.Tensor, group: int,
                      ck_s: torch.Tensor | None = None,
@@ -260,11 +291,14 @@ def cached_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     against one layer's cache [B, S, KV, H]; row b's query t sits at
     pos[b] + t and attends cache positions <= it -> [B, T, N, H].  An int8
     cache passes its scale buffers ``ck_s``/``cv_s`` [B, S, KV, 1].  The
-    decode-attention kernel where :func:`decode_kernel_takes` the call,
-    which reads the cache in place and only up to each row's position;
+    decode-attention kernel where :func:`decode_kernel_takes` the call, else
+    the chunk-attention kernel where :func:`chunk_kernel_takes` it, both of
+    which read the cache in place and only up to each row's position;
     :func:`cached_attention_plain` otherwise."""
     if decode_kernel_takes(q, ck, ck_s, group):
         return _decode_attention_cuda(q, ck, cv, pos)
+    if chunk_kernel_takes(q, ck, ck_s, group):
+        return _chunk_attention_cuda(q, ck, cv, pos)
     return cached_attention_plain(q, ck, cv, pos, group, ck_s, cv_s)
 
 
@@ -273,7 +307,8 @@ def cached_attention_plain(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
                            ck_s: torch.Tensor | None = None,
                            cv_s: torch.Tensor | None = None) -> torch.Tensor:
     """:func:`cached_attention` as the reference's einsums over the whole
-    cache, masked with -1e30: the decode-attention kernel's plain version.
+    cache, masked with -1e30: the plain version of both cache-attention
+    kernels.
 
     GQA stays grouped: q reshapes to [B, T, KV, group, H], so head n reads
     kv head n // group (the repeat order of the forward) and the cache is
@@ -297,21 +332,20 @@ def cached_attention_plain(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     return out.reshape(B, T, N, H).to(q.dtype)
 
 
-def _decode_launch_args(q, ck, cv, pos, outputs: dict) -> tuple:
-    """Check the arguments of ``csrc/decode_attn.cu``'s C entry and return
-    them, the stream aside: the pointers of q [B, T, N, H], the cache layer
-    ck, cv [B, S, KV, H] (all bf16), pos [B] int64 and ``outputs`` (out,
-    part_acc, part_ml), then B, T, S, N, KV, H and the softmax scale."""
+def _check_cache_operands(what: str, q, ck, cv, pos, outputs: dict) -> tuple[int, int]:
+    """The checks both cache-attention kernels need of q [B, T, N, H], the
+    cache layer ck, cv [B, S, KV, H], pos [B] int64 and ``outputs``: shapes
+    that agree, N a multiple of KV, every tensor on q's device, contiguous
+    and on a 16-byte boundary (the chunk kernel's TMA needs both), and q,
+    the cache and ``outputs["out"]`` bf16 -> (S, KV).  ``what`` names the
+    kernel in the errors."""
     B, T, N, H = q.shape
     if ck.dim() != 4 or ck.shape[0] != B or ck.shape[3] != H or cv.shape != ck.shape:
-        raise ValueError(f"decode attention takes a cache layer [{B}, S, KV, {H}] for q "
+        raise ValueError(f"{what} takes a cache layer [{B}, S, KV, {H}] for q "
                          f"{tuple(q.shape)}, got {tuple(ck.shape)} and {tuple(cv.shape)}")
     S, KV = ck.shape[1], ck.shape[2]
     if N % KV:
         raise ValueError(f"{N} query heads are not a multiple of {KV} KV heads")
-    if not decode_kernel_fits(T, N // KV, H):
-        raise ValueError(f"decode attention takes T * group <= {DECODE_MAX_QUERIES} and "
-                         f"head dim {DECODE_HEAD_DIM}, got T={T}, group={N // KV}, H={H}")
     for name, t in {"q": q, "ck": ck, "cv": cv, **outputs}.items():
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
@@ -319,10 +353,23 @@ def _decode_launch_args(q, ck, cv, pos, outputs: dict) -> tuple:
             raise ValueError(f"{name} must be contiguous and start on a 16-byte boundary")
     for name, t in {"q": q, "ck": ck, "cv": cv, "out": outputs["out"]}.items():
         if t.dtype != torch.bfloat16:
-            raise ValueError(f"decode attention takes bfloat16, {name} is {t.dtype}")
+            raise ValueError(f"{what} takes bfloat16, {name} is {t.dtype}")
     if (pos.device != q.device or pos.dtype != torch.int64 or pos.shape != (B,)
             or not pos.is_contiguous()):
         raise ValueError(f"pos must be a contiguous int64 [{B}] tensor on {q.device}")
+    return S, KV
+
+
+def _decode_launch_args(q, ck, cv, pos, outputs: dict) -> tuple:
+    """Check the arguments of ``csrc/decode_attn.cu``'s C entry and return
+    them, the stream aside: the pointers of q [B, T, N, H], the cache layer
+    ck, cv [B, S, KV, H] (all bf16), pos [B] int64 and ``outputs`` (out,
+    part_acc, part_ml), then B, T, S, N, KV, H and the softmax scale."""
+    B, T, N, H = q.shape
+    S, KV = _check_cache_operands("decode attention", q, ck, cv, pos, outputs)
+    if not decode_kernel_fits(T, N // KV, H):
+        raise ValueError(f"decode attention takes T * group <= {DECODE_MAX_QUERIES} and "
+                         f"head dim {DECODE_HEAD_DIM}, got T={T}, group={N // KV}, H={H}")
     n_splits, Q = -(-S // DECODE_SPLIT), T * (N // KV)
     want = {"out": (q.shape, torch.bfloat16),
             "part_acc": ((B, KV, n_splits, Q, H), torch.float32),
@@ -349,6 +396,36 @@ def _decode_attention_cuda(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     _call(_kernels.DECODE_ATTN, _decode_launch_args(q, ck, cv, pos, outputs), q.device,
           f"B={B}, T={T}, S={S}, N={N}, KV={KV}, H={H}")
     return outputs["out"]
+
+
+def _chunk_launch_args(q, ck, cv, pos, out) -> tuple:
+    """Check the arguments of ``csrc/chunk_attn.cu``'s C entry and return
+    them, the stream aside: the pointers of q [B, T, N, H], the cache layer
+    ck, cv [B, S, KV, H], pos [B] int64 and out [B, T, N, H] (all bf16 but
+    pos), then B, T, S, N, KV, H and the softmax scale."""
+    B, T, N, H = q.shape
+    S, KV = _check_cache_operands("chunk attention", q, ck, cv, pos, {"out": out})
+    if not chunk_kernel_fits(N // KV, H):
+        raise ValueError(f"chunk attention takes a group of at most {CHUNK_ROWS} and head "
+                         f"dim {CHUNK_HEAD_DIM}, got group={N // KV}, H={H}")
+    if out.shape != q.shape:
+        raise ValueError(f"out must be {tuple(q.shape)}, got {tuple(out.shape)}")
+    ptrs = [t.data_ptr() for t in (q, ck, cv, pos, out)]
+    return (*ptrs, B, T, S, N, KV, H, 1.0 / (H ** 0.5))
+
+
+def _chunk_attention_cuda(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                          pos: torch.Tensor) -> torch.Tensor:
+    """Launch ``csrc/chunk_attn.cu``: q [B, T, N, H] against one layer's
+    bf16 cache ck, cv [B, S, KV, H], read in place up to each block's last
+    query; row b's query t sits at pos[b] + t -> out [B, T, N, H] bf16, as
+    :func:`cached_attention_plain` with P rounded to bf16 before P·V."""
+    B, T, N, H = q.shape
+    S, KV = ck.shape[1], ck.shape[2]
+    out = torch.empty_like(q)
+    _call(_kernels.CHUNK_ATTN, _chunk_launch_args(q, ck, cv, pos, out), q.device,
+          f"B={B}, T={T}, S={S}, N={N}, KV={KV}, H={H}")
+    return out
 
 
 # ---- public API -----------------------------------------------------------

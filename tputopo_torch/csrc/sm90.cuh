@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks of the redesigned flash-attention kernels
-// (flash_fwd.cu, flash_bwd_dkv.cu): the TMA tensor map over a [B, S, N, H]
-// tensor, mbarriers, TMA loads, the wgmma shared-memory descriptor, the
-// wgmma shapes the kernels use, and register rebalancing.
+// (flash_fwd.cu, flash_bwd_dkv.cu) and of chunk_attn.cu: the TMA tensor map
+// over a [B, S, N, H] tensor, mbarriers, TMA loads, the wgmma shared-memory
+// descriptor, the wgmma shapes the kernels use, and register rebalancing.
 //
 // Shared-memory tiles: a TMA box is 64 head-dim columns (128 bytes of bf16)
 // by `rows` rows, written with the 128-byte swizzle: row r sits at r * 128
@@ -89,6 +89,25 @@ inline cudaError_t make_map_bshd(CUtensorMap* map, const void* ptr, int B, int S
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// make_map_bshd's map whose box spans `heads` heads: 64 columns x `heads`
+// heads x `rows` rows x 1 batch, landing as heads * rows swizzled rows of
+// 128 bytes, row = r * heads + head (chunk_attn.cu's GQA-packed Q tile).
+inline cudaError_t make_map_bshd_heads(CUtensorMap* map, const void* ptr, int B, int S, int N,
+                                       int H, int heads, int rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)H, (cuuint64_t)N, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)H * 2, (cuuint64_t)N * H * 2,
+                                 (cuuint64_t)S * N * H * 2};
+  const cuuint32_t box[4] = {BOX_COLS, (cuuint32_t)heads, (cuuint32_t)rows, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+                              dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // ---- device: shared memory, mbarriers, TMA ---------------------------------
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -143,6 +162,14 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
 }
 
 // ---- device: wgmma ---------------------------------------------------------
+
+// Two f32 values into one 32-bit register of bf16, the first in the low
+// half: a pair {d[2i], d[2i+1]} of the accumulator layout above, as the
+// register A operand takes it.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
 
 // The descriptor of a 128-byte-swizzled operand starting at shared address
 // `addr` (LBO and SBO in bytes; see the header note for their meaning).

@@ -15,9 +15,10 @@ engine's ragged steps (each slot at its own start).  The prompt fills the
 cache in one batched :func:`_block_step`, then each new token is one
 single-position step.  Attention over the cache is
 :func:`~.attention.cached_attention`: the grouped GQA einsum of the
-reference, in f32 with ``-1e30`` masking, or on the card, for a bf16 cache
-and few queries a row, the decode-attention kernel.  The prefill does not
-go through the flash kernel, exactly as the reference does not.
+reference, in f32 with ``-1e30`` masking, or on the card, for a bf16 cache,
+the decode-attention kernel for few queries a row and the chunk-attention
+kernel for the prefill's wider blocks.  The prefill does not go through the
+flash kernel, whose causal mask starts every query at position 0.
 
 Decoding policies: greedy (temperature 0, the default) and temperature
 sampling with optional top-k, drawn from a caller's ``torch.Generator``.

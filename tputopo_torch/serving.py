@@ -575,8 +575,8 @@ class ServingEngine:
     (:class:`~._graphs.Programs`), every device-to-host read and the stall
     that follows it (:meth:`_read`), and each request's ``queued``,
     ``admitted``, ``first_token`` and ``finished``.  Its export carries
-    :attr:`metrics`, the programs' counts, the launches of the decode
-    attention kernel and of the grouped GEMM, :attr:`weights`, and for an
+    :attr:`metrics`, the programs' counts, the launches of the decode and
+    chunk attention kernels and of the grouped GEMM, :attr:`weights`, and for an
     MoE config the routed layer's counts (``moe``:
     :class:`~.moe.ExpertCounts`, added to on the device by every program
     captured while traced).
@@ -672,6 +672,8 @@ class ServingEngine:
             tracer.carry("programs", programs.counts)
             tracer.carry("decode_attention", lambda: {
                 "launches": programs.launches[_kernels.DECODE_ATTN.name]})
+            tracer.carry("chunk_attention", lambda: {
+                "launches": programs.launches[_kernels.CHUNK_ATTN.name]})
             tracer.carry("grouped_mm", lambda: {
                 "launches": programs.launches[_kernels.GROUPED_MM.name]})
             tracer.carry("weights", lambda: dict(weights))
