@@ -2679,6 +2679,129 @@ def phase_moe_decode_serve(tt, kernels, params, cfg) -> dict:
     return launches["serve"]
 
 
+# The latent-attention phase: DeepSeek-V3's widths, one expert layer (8 of 256
+# experts held, the shared expert, the group-limited sigmoid router), the
+# vocabulary whole; both forms timed at the deepseekv3.longdoc cell's shapes:
+# a prefill chunk at starts (span = start + chunk) and the absorbed decode at
+# its 32 slots.
+MLA_SLOTS, MLA_MAX_LEN, MLA_CHUNK = 32, 32768, 2048
+MLA_CHUNK_STARTS = (0, 6144, 14336, 26624)
+
+
+def mla_config(tt, layers: int = 1):
+    """DeepSeek-V3 at its published widths, ``layers`` expert layers."""
+    from tputopo_torch.mla import MLAConfig
+
+    moe = tt.MoEConfig(n_experts=256, top_k=8, d_expert=2048, n_shared=1, held=(0, 8),
+                       scoring="sigmoid", n_group=8, topk_group=4, routed_scale=2.5)
+    return tt.ModelConfig(vocab_size=129280, d_model=7168, n_layers=layers, n_heads=128,
+                          n_kv_heads=128, d_ff=18432, max_seq=163840, rope_theta=10000.0,
+                          norm_eps=1e-6, moe=moe, mla=MLAConfig.deepseek_v3())
+
+
+def phase_mla(tt) -> dict:
+    """Latent attention at DeepSeek-V3's widths, in plain PyTorch, as
+    captured graphs replay it, each beside its least time (the cheaper
+    form's flops at the bf16 peak or the live rows, q and out at HBM
+    bandwidth): the expanded form over a 2048-token chunk at starts
+    :data:`MLA_CHUNK_STARTS`, reading the rows below the chunk's end only
+    (at one start, bit for bit what it gives over the whole cache); the
+    absorbed decode form at the cell's 32 slots x 32768 positions, which
+    reads every position.  Then one expert layer through
+    ``ServingEngine``'s programs, traced: ``decode_attn`` and ``chunk_attn``
+    never launched (their launch counts read around the engine's run), the
+    ``mla`` counts grown in both forms, the tokens the same on a second
+    run."""
+    from tputopo_torch import _kernels, attention
+
+    t_phase = time.perf_counter()
+    cfg = mla_config(tt)
+    m, N = cfg.mla, cfg.n_heads
+    R, Dq = m.kv_rank, m.row
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    bf = torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(bf)
+
+    def least_ms(T, pos, absorbed):
+        rows = int((pos + T).sum())
+        pairs = int((T * (pos + 1) + T * (T - 1) // 2).sum())
+        flops = 2.0 * N * pairs * ((2 * R + m.rope) if absorbed
+                                   else (m.nope + m.rope + m.v))
+        if not absorbed:
+            flops += 2.0 * R * N * (m.nope + m.v) * rows
+        nbytes = 2.0 * (rows * Dq + pos.numel() * T * N * (m.nope + m.rope + m.v))
+        return max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+
+    kv_b = randn(R, N * (m.nope + m.v), scale=R ** -0.5)
+    T = MLA_CHUNK
+    latent = randn(1, MLA_MAX_LEN, Dq)
+    q_nope, q_pe = randn(1, T, N, m.nope), randn(1, T, N, m.rope)
+    for start in MLA_CHUNK_STARTS:
+        pos = torch.tensor([start], device="cuda")
+        span = start + T
+
+        def call(span=span, pos=pos):
+            return attention.cached_latent_attention(q_nope, q_pe, latent, pos, kv_b, m, span)
+
+        rec = {"phase": "latent_prefill", "shape": [T, MLA_MAX_LEN, N], "start": start,
+               "ms": graph_ms(call, calls=2), "least_ms": least_ms(T, pos, False)}
+        if start == MLA_CHUNK_STARTS[1]:
+            rec["bitwise_whole_cache"] = bool(torch.equal(
+                call(), attention.cached_latent_attention(q_nope, q_pe, latent, pos, kv_b, m)))
+            check(rec["bitwise_whole_cache"], f"the span changed the prefill's output: {rec}")
+        rec["share_of_least"] = rec["least_ms"] / rec["ms"]
+        emit(rec)
+    del latent, q_nope, q_pe
+
+    latent = randn(MLA_SLOTS, MLA_MAX_LEN, Dq)
+    pos = torch.linspace(8192, 29000, MLA_SLOTS, device="cuda").long()
+    q_nope, q_pe = randn(MLA_SLOTS, 1, N, m.nope), randn(MLA_SLOTS, 1, N, m.rope)
+    rec = {"phase": "latent_decode", "shape": [MLA_SLOTS, 1, MLA_MAX_LEN, N],
+           "ms": graph_ms(lambda: attention.cached_latent_attention(
+               q_nope, q_pe, latent, pos, kv_b, m), calls=2),
+           "least_ms": least_ms(1, pos, True), "live_rows": int((pos + 1).sum())}
+    rec["share_of_least"] = rec["least_ms"] / rec["ms"]
+    emit(rec)
+    emit({"phase": "latent_decode_card", "card": card_state()})
+    del latent, q_nope, q_pe, kv_b
+
+    params = tt.init_params(cfg, 0)
+    lens = [(300, 6), (2100, 9), (4000, 5), (1500, 12)]
+    runs = []
+    for _ in range(2):
+        eng = tt.ServingEngine(params, cfg, slots=4, max_len=8192, prompt_pad=(2048, 4096),
+                               prefill_chunk=MLA_CHUNK, steps_per_tick=4,
+                               record_routes=True, tracer=tt.obs.Tracer())
+        before = {k.name: k.launches for k in _kernels.COUNTED}
+        rng = np.random.default_rng(5)
+        rids = [eng.submit(rng.integers(0, cfg.vocab_size, n).tolist(), k) for n, k in lens]
+        out = eng.run()
+        torch.cuda.synchronize()
+        launched = {k.name: k.launches - before[k.name] for k in _kernels.COUNTED}
+        counts = eng.tracer.export()["mla"]
+        runs.append([out[r] for r in rids])
+        routes = eng.routes[rids[1]]
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    rec = {"phase": "mla_serve", "launches": launched, "mla": counts,
+           "routes_max_id": int(routes.max()), "routes_dtype": str(routes.dtype),
+           "tokens_equal_on_rerun": runs[0] == runs[1],
+           "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    check(launched[_kernels.DECODE_ATTN.name] == 0 and launched[_kernels.CHUNK_ATTN.name] == 0,
+          f"a latent cache reached decode_attn or chunk_attn: {launched}")
+    check(counts["decode_calls"] > 0 and counts["prefill_calls"] > 0
+          and counts["decode_ns"] > 0 and counts["prefill_ns"] > 0, f"mla counts: {counts}")
+    check(rec["tokens_equal_on_rerun"], "the MLA engine's tokens differ between two runs")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
 def phase_moe_train(tt, kernels) -> dict:
     """Mixtral-8x7B width, MOE_TRAIN_LAYERS layers, tokens [1, 2048]: one
     step's loss (cross-entropy + aux) and grads through the kernels
@@ -3374,6 +3497,7 @@ def main() -> int:
     del moe_params
     gc.collect()
     torch.cuda.empty_cache()
+    timed("mla", phase_mla, tt)
     moe_train_launches = timed("moe_train", phase_moe_train, tt, _kernels.FLASH)
     gc.collect()
     torch.cuda.empty_cache()

@@ -191,9 +191,11 @@ def _recording(monkeypatch):
 
 def _recount(seen):
     loads = [torch.bincount(i.flatten(), minlength=E) for i in seen]
-    return {"calls": len(seen), "pairs": sum(int(i.numel()) for i in seen),
+    pairs = sum(int(i.numel()) for i in seen)
+    return {"calls": len(seen), "pairs": pairs,
             "experts_hit": sum(int((c > 0).sum()) for c in loads),
-            "max_load": sum(int(c.max()) for c in loads), "device_ns": 0}
+            "max_load": sum(int(c.max()) for c in loads), "pairs_all": pairs,
+            "device_ns": 0}
 
 
 def test_traced_counts_equal_a_host_recount_of_the_routing(weights, routed, monkeypatch):
@@ -297,7 +299,7 @@ def test_engine_keeps_the_expert_choices_of_each_finished_request(layer, monkeyp
     for rid, n in lens.items():
         row, routes = res[rid], eng.routes[rid]
         assert routes.shape == (m["num_hidden_layers"], len(row) - 1, K)
-        assert routes.dtype == torch.int8 and (routes >= 0).all()
+        assert routes.dtype == torch.int16 and (routes >= 0).all()
         logits, gap = ref_routed.logits_at(params, torch.tensor(row[:-1]), m,
                                            torch.arange(n - 1, len(row) - 1), routes.long())
         assert gap <= 1e-6

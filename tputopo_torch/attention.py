@@ -18,7 +18,11 @@ speculative steps, and ``csrc/chunk_attn.cu`` (:func:`_chunk_attention_cuda`)
 for wider blocks, the prefill chunks and admissions.
 :func:`decode_kernel_takes` and :func:`chunk_kernel_takes` say which calls
 take them, in that order; the rest (an int8 cache, an f32 model, the CPU)
-run :func:`cached_attention_plain`, their plain version.
+run :func:`cached_attention_plain`, their plain version.  Neither takes a
+latent cache: latent attention (MLA, :mod:`.mla`) over its own cache is
+:func:`cached_latent_attention`, two forms in plain PyTorch (bf16 products,
+an online softmax over blocks of positions): :func:`latent_absorbed` for
+decode steps, :func:`latent_expanded` for prefill chunks.
 
 :func:`flash_attention` is differentiable through one
 ``torch.autograd.Function``.  Its forward saves ``(q, k, v, o, lse)`` as the
@@ -39,6 +43,8 @@ as they are.  The LSE is an f32
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -259,7 +265,7 @@ def decode_kernel_takes(q: torch.Tensor, ck: torch.Tensor,
     the verify block, gamma + 1; wider calls, the prefills, keep the
     einsums), and a group and head dim the kernel takes."""
     T, H = q.shape[1], q.shape[3]
-    return (q.device.type == "cuda" and ck_s is None
+    return (q.device.type == "cuda" and ck_s is None and len(ck.shape) == 4
             and ck.dtype == q.dtype == torch.bfloat16 and T <= 16
             and decode_kernel_fits(T, group, H))
 
@@ -278,7 +284,7 @@ def chunk_kernel_takes(q: torch.Tensor, ck: torch.Tensor,
     multiple of the cache's KV heads, and a group and head dim the kernel
     takes; any number of queries a row."""
     N, H = q.shape[2], q.shape[3]
-    return (q.device.type == "cuda" and ck_s is None
+    return (q.device.type == "cuda" and ck_s is None and len(ck.shape) == 4
             and ck.dtype == q.dtype == torch.bfloat16
             and N == group * ck.shape[2] and chunk_kernel_fits(group, H))
 
@@ -330,6 +336,178 @@ def cached_attention_plain(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
         p = p * fold_kv_scale(cv_s)
     out = torch.einsum("bkgts,bskh->btkgh", p, cv.float())
     return out.reshape(B, T, N, H).to(q.dtype)
+
+
+# ---- latent attention (MLA) over a latent cache -----------------------------
+#
+# A latent cache row is one token's [c_kv, k_pe] (:mod:`.mla`), read in place
+# by both forms, a block of positions at a time, with an online softmax.  The
+# absorbed form attends it as one key/value head that every query head
+# shares; the expanded form up-projects each block of rows into each head's
+# keys and values as it reads the block.
+
+LATENT_ABSORBED_T = 16         # queries a row at most that take the absorbed form
+LATENT_BLOCK = 4096            # cache positions a block of the absorbed form
+LATENT_EXPANDED_BLOCK = 1024   # cache positions a block of the expanded form
+
+# The counts the latent attention adds to (:func:`latent_counting`); None: it
+# counts nothing and adds no operation.
+_LATENT = None
+_graphs.AMBIENT.append(lambda: None if _LATENT is None else _LATENT.values)
+
+
+@contextlib.contextmanager
+def latent_counting(counts):
+    """Within the block, latent attention adds to ``counts`` (an
+    :class:`~.obs.LatentCounts`; None: to nothing), in the captured programs
+    as :func:`~.moe.counting` does for the expert layer."""
+    global _LATENT
+    before, _LATENT = _LATENT, counts
+    try:
+        yield
+    finally:
+        _LATENT = before
+
+
+def cached_latent_attention(q_nope: torch.Tensor, q_pe: torch.Tensor,
+                            latent: torch.Tensor, pos: torch.Tensor, kv_b,
+                            m, span: int | None = None) -> torch.Tensor:
+    """Latent attention over one layer's latent cache: queries q_nope
+    [B, T, N, nope] and q_pe [B, T, N, rope] (rotated), row b's query t at
+    pos[b] + t attending the cache rows latent [B, S, kv_rank + rope] at
+    positions <= it; ``kv_b`` [kv_rank, N (nope + v)] the up-projection of
+    :class:`~.mla.MLAConfig` ``m`` -> [B, T, N, v].
+
+    ``span`` (a host int; None: S) is a bound the caller knows when the
+    program is built, a prefill chunk's start + T: every query attends no
+    row at or past it, and every row below span - T.  The forms then read
+    the rows below ``span`` only, and mask only the blocks that reach past
+    span - T.  A decode step's positions differ by slot and are read on
+    the device, so its forms read all S rows.
+
+    T <= :data:`LATENT_ABSORBED_T` (decode steps) takes the absorbed form,
+    :func:`latent_absorbed`: 2 N (2 kv_rank + rope) flops a (query,
+    position) pair and no up-projection, against 2 N (nope + rope + v) a
+    pair plus 2 kv_rank N (nope + v) a row up-projected for the expanded
+    form, :func:`latent_expanded`, which the wider prefill chunks take (at
+    T 2048, 3.4 times fewer flops a pair).  Neither builds a score tile over
+    the whole cache for many queries."""
+    T = q_nope.shape[1]
+    S = latent.shape[1]
+    rows, seen = (latent, 0) if span is None else (latent[:, :span], max(span - T, 0))
+    absorbed = T <= LATENT_ABSORBED_T
+    counts = _LATENT
+    if counts is not None:
+        counts.clock(absorbed, -1)
+    form = latent_absorbed if absorbed else latent_expanded
+    out = form(q_nope, q_pe, rows, pos, kv_b, m, seen)
+    if counts is not None:
+        counts.add(absorbed, pos, T, S)
+        counts.clock(absorbed, 1)
+    return out
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The batched product of compute-dtype operands, accumulated and
+    returned in f32 (the bf16 operands' products are exact in f32)."""
+    if a.dtype == torch.float32:
+        return torch.bmm(a, b)
+    if a.device.type == "cuda":
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def _online_softmax(block, qpos: torch.Tensor, S: int, size: int, seen: int) -> torch.Tensor:
+    """softmax(scores) @ values over key positions 0..S-1 in blocks of
+    ``size`` with a running max and sum: ``block(s0, s1)`` gives the block's
+    scaled f32 scores [G, M, s1 - s0] (the tile is reused in place) and its
+    values [G, s1 - s0, Dv]; query row r attends positions <= qpos[.., r]
+    ([G or 1, M]), every row attends the positions below ``seen``, whose
+    blocks go unmasked -> [G, M, Dv] f32.  The probabilities are rounded
+    once, to the values' dtype, as the exponential writes them, and both
+    the product and the running sum take the rounded ones."""
+    m_run = l_run = acc = None
+    for s0 in range(0, S, size):
+        s1 = min(S, s0 + size)
+        s, vb = block(s0, s1)
+        if s1 > seen:
+            s.masked_fill_(torch.arange(s0, s1, device=s.device) > qpos[..., None], NEG_INF)
+        top = s.amax(-1, keepdim=True)
+        m_new = top if m_run is None else torch.maximum(m_run, top)
+        p = torch.exp(s.sub_(m_new), out=torch.empty(s.shape, dtype=vb.dtype, device=s.device))
+        pv = _mm_f32(p, vb)
+        ps = p.sum(-1, keepdim=True, dtype=torch.float32)
+        if m_run is None:
+            acc, l_run = pv, ps
+        else:
+            alpha = torch.exp(m_run - m_new)
+            acc = acc.mul_(alpha).add_(pv)
+            l_run = l_run.mul_(alpha).add_(ps)
+        m_run = m_new
+    return acc / l_run
+
+
+def _up_weights(kv_b, m, N: int, dtype):
+    """``kv_b`` at ``dtype`` as (W_uk [kv_rank, N, nope], W_uv [kv_rank, N, v])."""
+    w = kv_b.to(dtype).reshape(m.kv_rank, N, m.nope + m.v)
+    return w[..., :m.nope], w[..., m.nope:]
+
+
+def latent_absorbed(q_nope, q_pe, latent, pos, kv_b, m, seen: int = 0) -> torch.Tensor:
+    """The absorbed form: each query head's ``q_nope W_uk^T`` (kv_rank wide,
+    the softmax scale folded in before its one rounding) beside its q_pe
+    attends the cache rows as one shared key head of kv_rank + rope
+    features, whose first kv_rank are the shared values, over blocks of
+    :data:`LATENT_BLOCK` positions; ``W_uv`` maps each head's latent output
+    to its values."""
+    from tputopo_torch.mla import softmax_scale
+
+    B, T, N, _ = q_nope.shape
+    R = m.kv_rank
+    dt = q_nope.dtype
+    w_uk, w_uv = _up_weights(kv_b, m, N, dt)
+    scale = softmax_scale(m)
+    q_abs = torch.einsum("btnd,rnd->btnr", q_nope.float(), w_uk.float()) * scale
+    qa = torch.cat([q_abs, q_pe.float() * scale], dim=-1).to(dt).reshape(B, T * N, -1)
+    qpos = (pos[:, None] + torch.arange(T, device=pos.device)).repeat_interleave(N, dim=1)
+
+    def block(s0, s1):
+        rows = latent[:, s0:s1]
+        return _mm_f32(qa, rows.transpose(1, 2)), rows[..., :R]
+
+    o = _online_softmax(block, qpos, latent.shape[1], LATENT_BLOCK, seen)
+    return torch.einsum("btnr,rnv->btnv", o.to(dt).reshape(B, T, N, R), w_uv)
+
+
+def latent_expanded(q_nope, q_pe, latent, pos, kv_b, m, seen: int = 0) -> torch.Tensor:
+    """The expanded form: per row b and over blocks of
+    :data:`LATENT_EXPANDED_BLOCK` positions, the block's c_kv up-projected by
+    ``kv_b`` into each head's k_nope and values, the shared k_pe beside
+    them; each head's [q_nope, q_pe] (the softmax scale folded in before its
+    one rounding, as the absorbed form folds it) attends them -> [B, T, N,
+    v] at the queries' dtype."""
+    from tputopo_torch.mla import softmax_scale
+
+    B, T, N, _ = q_nope.shape
+    R = m.kv_rank
+    w = kv_b.to(latent.dtype)
+    scale = softmax_scale(m)
+    outs = []
+    for b in range(B):
+        q = (torch.cat([q_nope[b], q_pe[b]], dim=-1).float() * scale).to(q_nope.dtype)
+        q = q.transpose(0, 1)                                                 # [N, T, Dk]
+        qpos = (pos[b] + torch.arange(T, device=pos.device))[None]
+
+        def block(s0, s1, b=b, q=q):
+            rows = latent[b, s0:s1]
+            kv = (rows[:, :R] @ w).reshape(s1 - s0, N, m.nope + m.v)
+            k = torch.cat([kv[..., :m.nope],
+                           rows[:, None, R:].expand(-1, N, -1)], dim=-1)      # [n, N, Dk]
+            return _mm_f32(q, k.permute(1, 2, 0)), kv[..., m.nope:].transpose(0, 1)
+
+        o = _online_softmax(block, qpos, latent.shape[1], LATENT_EXPANDED_BLOCK, seen)
+        outs.append(o.transpose(0, 1))
+    return torch.stack(outs).to(q_nope.dtype)
 
 
 def _check_cache_operands(what: str, q, ck, cv, pos, outputs: dict) -> tuple[int, int]:

@@ -4,7 +4,8 @@
 
 The cache is a pair of preallocated ``[L, B, S_max, KV, H]`` buffers in
 ``compute_dtype``, or, with ``kv_dtype="int8"``, int8 buffers beside
-float32 scale buffers ``[L, B, S_max, KV, 1]``.  Where JAX threads a new
+float32 scale buffers ``[L, B, S_max, KV, 1]``; an MLA config's is one
+latent buffer ``[L, B, S_max, kv_rank + rope]`` (:mod:`.mla`).  Where JAX threads a new
 cache value through ``lax.scan``, this module writes the new K/V rows into
 the buffers in place (:func:`_write_kv_at`, quantizing them for an int8
 cache) and loops over layers and steps in Python.
@@ -40,24 +41,34 @@ import torch
 import torch.nn.functional as F
 
 from tputopo_torch import _graphs
-from tputopo_torch.attention import cached_attention
+from tputopo_torch.attention import cached_attention, cached_latent_attention
 from tputopo_torch.model import (ModelConfig, _apply_rope, _check_supported,
-                                 _layer, _rmsnorm, _rope_tables, check_token_ids,
-                                 embed_tokens, lm_head, resolve_device)
+                                 _rmsnorm, _rope_tables, check_token_ids,
+                                 embed_tokens, layer_at, lm_head, n_dense,
+                                 resolve_device)
 from tputopo_torch.quant import deq_rows, qdot, quantize_kv
 
 
 class KVCache(NamedTuple):
-    k: torch.Tensor  # [L, B, S_max, KV, H]  compute_dtype, or int8
-    v: torch.Tensor  # [L, B, S_max, KV, H]
+    k: torch.Tensor | None  # [L, B, S_max, KV, H]  compute_dtype, or int8
+    v: torch.Tensor | None  # [L, B, S_max, KV, H]
     # int8 cache only: per-(batch, position, kv-head) absmax scales,
     # [L, B, S_max, KV, 1] f32.  None for a bf16 cache.
     k_scale: torch.Tensor | None = None
     v_scale: torch.Tensor | None = None
     # An MoE config's expert choices, kept where asked for: the top-k expert
-    # ids [L, B, S_max, k] int8 of the token at each position, written
-    # beside its K/V by the serving bodies (-1 where none was).
+    # ids [L_moe, B, S_max, k] int16 (ids up to 32767) of the token at each
+    # position in each expert layer, written beside its K/V by the serving
+    # bodies (-1 where none was).
     routes: torch.Tensor | None = None
+    # An MLA config's cache, in place of k and v: each token's normed c_kv
+    # and rotated k_pe, [L, B, S_max, kv_rank + rope] at compute_dtype.
+    latent: torch.Tensor | None = None
+
+    @property
+    def positions(self) -> int:
+        """S_max, the positions a row holds."""
+        return (self.k if self.latent is None else self.latent).shape[2]
 
     @staticmethod
     def create(config: ModelConfig, batch: int, max_len: int, *,
@@ -70,9 +81,15 @@ class KVCache(NamedTuple):
         if routes and c.moe is None:
             raise ValueError("routes are kept for an MoE config only")
         dev = resolve_device(device)
+        picks = (torch.full((c.n_layers - n_dense(c), batch, max_len, c.moe.top_k), -1,
+                            dtype=torch.int16, device=dev) if routes else None)
+        if c.mla is not None:
+            if c.kv_dtype != "bf16":
+                raise ValueError("the int8 KV cache has no latent (MLA) layout")
+            return KVCache(k=None, v=None, routes=picks, latent=torch.zeros(
+                (c.n_layers, batch, max_len, c.mla.row), dtype=c.compute_dtype,
+                device=dev))
         shape = (c.n_layers, batch, max_len, c.n_kv_heads, c.head_dim)
-        picks = (torch.full((c.n_layers, batch, max_len, c.moe.top_k), -1,
-                            dtype=torch.int8, device=dev) if routes else None)
         if c.kv_dtype == "int8":
             sshape = shape[:-1] + (1,)
             return KVCache(k=torch.zeros(shape, dtype=torch.int8, device=dev),
@@ -109,44 +126,71 @@ def _write_kv_at(cache_l: torch.Tensor, kv: torch.Tensor,
 
 def cached_layers(params: dict, config: ModelConfig, x: torch.Tensor,
                   cos_bt: torch.Tensor, sin_bt: torch.Tensor, starts: torch.Tensor,
-                  cache: KVCache) -> torch.Tensor:
+                  cache: KVCache, span: int | None = None) -> torch.Tensor:
     """The layer stack over a KV cache: embedded rows x [B, T, D] whose
     RoPE rows cos_bt/sin_bt ([B, T, H/2], or [T, H/2] shared by every row)
     are given, row b's K/V (and, where the cache keeps them, its expert
     choices) written at its window ``starts[b]`` and its queries masked
     from its raw start -> the last layer's output [B, T, D].  One start for
     every row is the one-shot block (:func:`_block_hidden`); one per slot
-    is the serving step (:func:`~.serving.ragged_hidden`)."""
+    is the serving step (:func:`~.serving.ragged_hidden`).  An MLA config
+    writes each token's latent row and attends the latent cache
+    (:func:`~.attention.cached_latent_attention`), only the rows below
+    ``span`` where the caller knows that no query attends past it."""
     c = config
     B, T = x.shape[:2]
-    group = c.n_heads // c.n_kv_heads
+    K = n_dense(c)
     for i in range(c.n_layers):
-        layer = _layer(params["layers"], i)
+        layer = layer_at(params["layers"], c, i)
         h = _rmsnorm(x, layer["attn_norm"], c.norm_eps)
-        q = qdot(h, layer["wq"]).reshape(B, T, c.n_heads, c.head_dim)
-        k = qdot(h, layer["wk"]).reshape(B, T, c.n_kv_heads, c.head_dim)
-        v = qdot(h, layer["wv"]).reshape(B, T, c.n_kv_heads, c.head_dim)
-        q = _apply_rope(q, cos_bt, sin_bt)
-        k = _apply_rope(k, cos_bt, sin_bt)
-        cks = cvs = None
-        if cache.k_scale is not None:
-            cks, cvs = cache.k_scale[i], cache.v_scale[i]
-            k, ks = quantize_kv(k)
-            v, vs = quantize_kv(v)
-            _write_kv_at(cks, ks, starts)
-            _write_kv_at(cvs, vs, starts)
-        _write_kv_at(cache.k[i], k, starts)
-        _write_kv_at(cache.v[i], v, starts)
-        out = cached_attention(q, cache.k[i], cache.v[i], starts, group, cks, cvs)
-        x = x + qdot(out.reshape(B, T, c.n_heads * c.head_dim), layer["wo"])
+        if c.mla is not None:
+            x = x + _latent_attention(h, layer, c, cos_bt, sin_bt, starts,
+                                      cache.latent[i], span)
+        else:
+            x = x + _gqa_attention(h, layer, c, cos_bt, sin_bt, starts, cache, i)
         h = _rmsnorm(x, layer["mlp_norm"], c.norm_eps)
-        if cache.routes is None:
+        if cache.routes is None or i < K:
             x = x + serving_ffn(h, layer, c)
         else:  # the expert choices kept beside the K/V rows
             y, picks = serving_ffn(h, layer, c, picks=True)
-            _write_kv_at(cache.routes[i], picks.to(torch.int8), starts)
+            _write_kv_at(cache.routes[i - K], picks.to(cache.routes.dtype), starts)
             x = x + y
     return x
+
+
+def _gqa_attention(h, layer, c, cos_bt, sin_bt, starts, cache, i) -> torch.Tensor:
+    """Layer ``i``'s grouped-query attention over the K/V cache: its K/V rows
+    written at ``starts`` -> the output projection [B, T, D]."""
+    B, T = h.shape[:2]
+    q = qdot(h, layer["wq"]).reshape(B, T, c.n_heads, c.head_dim)
+    k = qdot(h, layer["wk"]).reshape(B, T, c.n_kv_heads, c.head_dim)
+    v = qdot(h, layer["wv"]).reshape(B, T, c.n_kv_heads, c.head_dim)
+    q = _apply_rope(q, cos_bt, sin_bt)
+    k = _apply_rope(k, cos_bt, sin_bt)
+    cks = cvs = None
+    if cache.k_scale is not None:
+        cks, cvs = cache.k_scale[i], cache.v_scale[i]
+        k, ks = quantize_kv(k)
+        v, vs = quantize_kv(v)
+        _write_kv_at(cks, ks, starts)
+        _write_kv_at(cvs, vs, starts)
+    _write_kv_at(cache.k[i], k, starts)
+    _write_kv_at(cache.v[i], v, starts)
+    out = cached_attention(q, cache.k[i], cache.v[i], starts, c.n_heads // c.n_kv_heads,
+                           cks, cvs)
+    return qdot(out.reshape(B, T, c.n_heads * c.head_dim), layer["wo"])
+
+
+def _latent_attention(h, layer, c, cos_bt, sin_bt, starts, latent, span) -> torch.Tensor:
+    """One MLA layer over the latent cache (:mod:`.mla`): the tokens' latent
+    rows written at ``starts`` -> the output projection [B, T, D]."""
+    from tputopo_torch import mla
+
+    B, T = h.shape[:2]
+    q_nope, q_pe = mla.queries(h, layer, c, cos_bt, sin_bt)
+    _write_kv_at(latent, mla.latent_row(h, layer, c, cos_bt, sin_bt), starts)
+    out = cached_latent_attention(q_nope, q_pe, latent, starts, layer["kv_b"], c.mla, span)
+    return qdot(out.reshape(B, T, c.n_heads * c.mla.v), layer["wo"])
 
 
 def _block_step(params: dict, config: ModelConfig, tokens: torch.Tensor,
@@ -179,11 +223,11 @@ def _block_hidden(params: dict, config: ModelConfig, tokens: torch.Tensor,
 def serving_ffn(h: torch.Tensor, layer: dict, config: ModelConfig, *,
                 picks: bool = False):
     """One layer's FFN on the serving paths: the dense SwiGLU, or the
-    drop-free expert mixture of an MoE config, by the routed layer where
+    drop-free expert mixture of an MoE layer, by the routed layer where
     :func:`~.moe.routed_takes` it and by the loop over the experts
     elsewhere.  With ``picks`` (MoE only), (output, the top-k expert ids
     [B, T, k])."""
-    if config.moe is not None:
+    if "moe" in layer:
         from tputopo_torch import moe
 
         if moe.routed_takes(h, layer["moe"], config):

@@ -81,6 +81,8 @@ def init_lora(config: ModelConfig, seed: int = 0, *, rank: int = 8,
     self-contained."""
     if rank < 1:
         raise ValueError(f"rank must be >= 1, got {rank}")
+    if config.mla is not None:
+        raise ValueError("LoRA has no latent attention (MLA) support")
     for name in targets:
         if name not in _COL_PARALLEL:
             raise ValueError(
@@ -110,6 +112,8 @@ def lora_view(base_params: dict, lora: dict) -> dict:
     """The parameter tree the forward consumes: targeted leaves wrapped as
     LoRA dicts (:func:`~.quant.qdot` adds the delta), everything else the
     frozen base.  Tree surgery only: no base tensor is copied."""
+    if "kv_b" in base_params["layers"]:
+        raise ValueError("LoRA has no latent attention (MLA) support")
     layers = dict(base_params["layers"])
     for name, ad in lora["layers"].items():
         if name not in layers:
@@ -127,6 +131,8 @@ def merge_lora(base_params: dict, lora: dict) -> dict:
     extra dot); the input trees are left as they are.  A quantized base
     cannot take the delta losslessly: serve it through :func:`lora_view`
     instead (that is the QLoRA shape)."""
+    if "kv_b" in base_params["layers"]:
+        raise ValueError("LoRA has no latent attention (MLA) support")
     layers = dict(base_params["layers"])
     for name, ad in lora["layers"].items():
         w = layers[name]

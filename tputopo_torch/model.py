@@ -106,6 +106,9 @@ class ModelConfig:
     remat: str = "block"
     moe: "object | None" = None
     kv_dtype: str = "bf16"
+    # Multi-head latent attention (:class:`~.mla.MLAConfig`) in every layer
+    # in place of GQA; its head widths are its own, not d_model / n_heads.
+    mla: "object | None" = None
 
     SP_IMPLS = ("ring", "a2a")
     REMATS = ("block", "dots", "none")
@@ -118,6 +121,9 @@ class ModelConfig:
 
     @property
     def head_dim(self) -> int:
+        if self.mla is not None:
+            raise ValueError("an MLA config's head widths are its mla's "
+                             "(nope, rope, v), not d_model / n_heads")
         if self.d_model % self.n_heads:
             raise ValueError(f"d_model {self.d_model} not divisible by "
                              f"n_heads {self.n_heads}")
@@ -138,6 +144,28 @@ class ModelConfig:
 def _check_supported(c: ModelConfig) -> None:
     if c.remat not in c.REMATS:
         raise ValueError(f"unknown remat policy {c.remat!r}")
+
+
+def check_plain(c: ModelConfig, what: str) -> None:
+    """Refuse, naming ``what``, a config with what only the serving path's
+    cached layers support: latent attention (MLA), or an expert layout
+    beyond Mixtral's (leading dense layers, shared experts, sigmoid or
+    group-limited routing, a share of the experts held)."""
+    if c.mla is not None:
+        raise ValueError(f"{what} has no latent attention (MLA) support; "
+                         "serve an MLA config through ServingEngine or generate")
+    m = c.moe
+    if m is not None and (m.first_dense or m.n_shared or m.scoring != "softmax"
+                          or m.held is not None):
+        raise ValueError(f"{what} supports Mixtral's expert layer only (no "
+                         "leading dense layers, shared experts, sigmoid routing "
+                         "or held share)")
+
+
+def n_dense(c: ModelConfig) -> int:
+    """The layers whose FFN is the dense SwiGLU: all of a dense config's,
+    the leading ``first_dense`` of an expert config's."""
+    return c.n_layers if c.moe is None else c.moe.first_dense
 
 
 def init_params(config: ModelConfig, seed: int = 0, *, device=None,
@@ -161,27 +189,35 @@ def init_params(config: ModelConfig, seed: int = 0, *, device=None,
         w = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
         return keep(path, w.mul_(1.0 / math.sqrt(fan_in)))
 
-    L, D, H, KV, Hd, Fd = (c.n_layers, c.d_model, c.n_heads, c.n_kv_heads,
-                           c.head_dim, c.d_ff)
+    L, D, Fd = c.n_layers, c.d_model, c.d_ff
     # the dict order is the draw order
     embed = dense_init(("embed",), (c.vocab_size, D), D)
-    layers = {
-        "attn_norm": norm_init(("layers", "attn_norm"), (L, D)),
-        "wq": dense_init(("layers", "wq"), (L, D, H * Hd), D),
-        "wk": dense_init(("layers", "wk"), (L, D, KV * Hd), D),
-        "wv": dense_init(("layers", "wv"), (L, D, KV * Hd), D),
-        "wo": dense_init(("layers", "wo"), (L, H * Hd, D), H * Hd),
-        "mlp_norm": norm_init(("layers", "mlp_norm"), (L, D)),
-    }
+    if c.mla is not None:
+        from tputopo_torch.mla import init_layers
+
+        layers = init_layers(
+            c, L, lambda name, shape: norm_init(("layers", name), shape),
+            lambda name, shape, fan_in: dense_init(("layers", name), shape, fan_in))
+    else:
+        H, KV, Hd = c.n_heads, c.n_kv_heads, c.head_dim
+        layers = {
+            "attn_norm": norm_init(("layers", "attn_norm"), (L, D)),
+            "wq": dense_init(("layers", "wq"), (L, D, H * Hd), D),
+            "wk": dense_init(("layers", "wk"), (L, D, KV * Hd), D),
+            "wv": dense_init(("layers", "wv"), (L, D, KV * Hd), D),
+            "wo": dense_init(("layers", "wo"), (L, H * Hd, D), H * Hd),
+            "mlp_norm": norm_init(("layers", "mlp_norm"), (L, D)),
+        }
+    K = n_dense(c)
+    if K:  # the dense layers' FFN: all of them, or the leading ones
+        layers["w_gate"] = dense_init(("layers", "w_gate"), (K, D, Fd), D)
+        layers["w_up"] = dense_init(("layers", "w_up"), (K, D, Fd), D)
+        layers["w_down"] = dense_init(("layers", "w_down"), (K, Fd, D), Fd)
     if c.moe is not None:
         from tputopo_torch.moe import init_moe_params
 
         layers["moe"] = init_moe_params(c, dense=lambda name, shape, fan_in: dense_init(
             ("layers", "moe", name), shape, fan_in))
-    else:
-        layers["w_gate"] = dense_init(("layers", "w_gate"), (L, D, Fd), D)
-        layers["w_up"] = dense_init(("layers", "w_up"), (L, D, Fd), D)
-        layers["w_down"] = dense_init(("layers", "w_down"), (L, Fd, D), Fd)
     return {"embed": embed, "layers": layers,
             "final_norm": norm_init(("final_norm",), (D,)),
             "lm_head": dense_init(("lm_head",), (D, c.vocab_size), D)}
@@ -196,7 +232,12 @@ def _rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
 def _rope_tables(config: ModelConfig, seq: int, device) -> tuple:
     """(cos, sin), each [S, Hd/2] f32.  theta stays a 0-dim CPU tensor,
     which a CUDA op takes as a kernel argument: no host-to-device copy, so
-    a CUDA graph capture records the tables' few kernels like any others."""
+    a CUDA graph capture records the tables' few kernels like any others.
+    An MLA config's are its rope features' YaRN tables (:func:`.mla.rope_tables`)."""
+    if config.mla is not None:
+        from tputopo_torch.mla import rope_tables
+
+        return rope_tables(config.mla, config.rope_theta, seq, device)
     half = config.head_dim // 2
     exponent = -torch.arange(0, half, dtype=torch.float32, device=device) / half
     freqs = torch.pow(torch.tensor(config.rope_theta, dtype=torch.float32), exponent)
@@ -391,6 +432,23 @@ def _layer(layers: dict, i: int) -> dict:
     return {name: take(w) for name, w in layers.items()}
 
 
+_DENSE_FFN = ("w_gate", "w_up", "w_down")
+
+
+def layer_at(layers: dict, config: ModelConfig, i: int) -> dict:
+    """Layer ``i`` of the stacked tree under ``config``'s FFN layout: the
+    dense FFN's leaves are stacked over the leading :func:`n_dense` layers
+    and the expert layer's (``moe``) over the rest, so layer ``i`` holds
+    one or the other.  :func:`_layer` where every layer has the same kind."""
+    K = n_dense(config)
+    if K in (0, config.n_layers):
+        return _layer(layers, i)
+    ffn = _DENSE_FFN if i < K else ("moe",)
+    shared = {k: w for k, w in layers.items() if k not in _DENSE_FFN and k != "moe"}
+    return {**_layer(shared, i),
+            **_layer({k: layers[k] for k in ffn}, i if i < K else i - K)}
+
+
 def _requires_grad(tree) -> bool:
     """Whether any tensor of a nested dict requires grad (a LoRA adapter's
     leaves sit inside the weight dicts)."""
@@ -501,6 +559,7 @@ def trunk(params: dict, tokens: torch.Tensor, config: ModelConfig,
     with ``n_micro`` microbatches (:mod:`.pipeline`)."""
     from tputopo_torch.sharding import active_plan
 
+    check_plain(config, "the training forward")
     plan = active_plan()
     if plan is not None and plan.size("pp") > 1:
         from tputopo_torch.pipeline import pipelined_trunk

@@ -66,6 +66,50 @@ class MoEConfig:
     # tokens over capacity fall through the residual.
     capacity_factor: float = 1.25
     aux_loss_weight: float = 1e-2
+    # DeepSeek-V3's layout (serving only; the training path refuses it):
+    # leading layers with the dense FFN (width d_ff), each expert's width
+    # (None: d_ff), shared experts of that width every token reaches, and
+    # the experts [lo, hi) of the n_experts that this chip holds (None:
+    # all), as one rank of expert parallelism holds its share.
+    first_dense: int = 0
+    d_expert: int | None = None
+    n_shared: int = 0
+    held: tuple[int, int] | None = None
+    # Routing: "softmax" (top k of a softmax, gates renormalised over the
+    # k) or "sigmoid" (DeepSeek-V3's: sigmoid scores, a bias that takes part
+    # in the choice only, the best ``topk_group`` of ``n_group`` groups by
+    # the sum of each group's top 2, the top k within them, the gates the
+    # scores renormalised over the k and scaled by ``routed_scale``).
+    scoring: str = "softmax"
+    n_group: int = 1
+    topk_group: int = 1
+    routed_scale: float = 1.0
+
+    SCORINGS = ("softmax", "sigmoid")
+
+    def __post_init__(self):
+        if self.scoring not in self.SCORINGS:
+            raise ValueError(f"unknown scoring {self.scoring!r} (want one of "
+                             f"{self.SCORINGS})")
+        if self.n_experts % self.n_group or not 1 <= self.topk_group <= self.n_group:
+            raise ValueError(f"{self.n_experts} experts in {self.n_group} groups, "
+                             f"top {self.topk_group}: groups must divide the experts")
+        lo, hi = self.held_range
+        if not 0 <= lo < hi <= self.n_experts:
+            raise ValueError(f"held experts {self.held} outside [0, {self.n_experts})")
+
+    @property
+    def held_range(self) -> tuple[int, int]:
+        return self.held if self.held is not None else (0, self.n_experts)
+
+    @property
+    def n_held(self) -> int:
+        lo, hi = self.held_range
+        return hi - lo
+
+    def width(self, cfg) -> int:
+        """Each expert's (and each shared expert's) FFN width."""
+        return self.d_expert or cfg.d_ff
 
     def capacity(self, group_tokens: int) -> int:
         raw = group_tokens * self.top_k * self.capacity_factor / self.n_experts
@@ -74,15 +118,19 @@ class MoEConfig:
 
 
 def init_moe_params(cfg, seed: int = 0, *, device=None, dense=None) -> dict:
-    """Per-layer MoE tensors stacked on a leading layer axis, expert axis
-    second: router [L, D, E], expert FFN [L, E, D, F] / [L, E, F, D], f32.
+    """Per-layer MoE tensors stacked on a leading axis over the expert layers
+    (all but the ``first_dense``), expert axis second: router [L, D, E],
+    the held experts' FFN [L, E_held, D, F] / [L, E_held, F, D], f32; a
+    sigmoid router's bias [L, E] (zeros), and the shared experts' SwiGLU
+    ``shared_gate`` / ``shared_up`` [L, D, n_shared F], ``shared_down``.
 
     ``dense(name, shape, fan_in)`` draws one leaf; by default N(0, 1/fan_in)
     from a ``torch.Generator`` seeded with ``seed`` on ``device``
     (:func:`~.model.init_params` passes its own, so a model draws from one
     stream)."""
     m = cfg.moe
-    L, D, Fd, E = cfg.n_layers, cfg.d_model, cfg.d_ff, m.n_experts
+    L, D, Fd, E = cfg.n_layers - m.first_dense, cfg.d_model, m.width(cfg), m.n_experts
+    Eh = m.n_held
     if dense is None:
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -91,12 +139,21 @@ def init_moe_params(cfg, seed: int = 0, *, device=None, dense=None) -> dict:
             w = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
             return w.mul_(1.0 / math.sqrt(fan_in))
 
-    return {  # the dict order is the draw order
+    out = {  # the dict order is the draw order
         "router": dense("router", (L, D, E), D),
-        "w_gate": dense("w_gate", (L, E, D, Fd), D),
-        "w_up": dense("w_up", (L, E, D, Fd), D),
-        "w_down": dense("w_down", (L, E, Fd, D), Fd),
+        "w_gate": dense("w_gate", (L, Eh, D, Fd), D),
+        "w_up": dense("w_up", (L, Eh, D, Fd), D),
+        "w_down": dense("w_down", (L, Eh, Fd, D), Fd),
     }
+    if m.scoring == "sigmoid":
+        out["bias"] = torch.zeros((L, E), dtype=torch.float32,
+                                  device=out["router"].device)
+    if m.n_shared:
+        Fs = m.n_shared * Fd
+        out["shared_gate"] = dense("shared_gate", (L, D, Fs), D)
+        out["shared_up"] = dense("shared_up", (L, D, Fs), D)
+        out["shared_down"] = dense("shared_down", (L, Fs, D), Fs)
+    return out
 
 
 class _AllReduce(torch.autograd.Function):
@@ -232,6 +289,41 @@ def _top_k_gates(x32: torch.Tensor, router: torch.Tensor, m: MoEConfig):
     return gates / gates.sum(-1, keepdim=True).clamp_min(1e-9), idx
 
 
+def _sigmoid_gates(x32: torch.Tensor, router: torch.Tensor, bias: torch.Tensor,
+                   m: MoEConfig):
+    """DeepSeek-V3's routing of x32 [..., D] (float32): sigmoid scores; the
+    bias added for the choice only; each of ``n_group`` groups scored by the
+    sum of its two best biased scores, the best ``topk_group`` groups kept
+    and the top k chosen inside them; the gates are the chosen experts'
+    unbiased scores renormalised over the k and scaled by ``routed_scale``
+    -> (gates [..., k] float32, expert ids [..., k])."""
+    scores = torch.sigmoid(x32 @ router.float())
+    choice = scores + bias.float()
+    if m.n_group > 1:
+        grouped = choice.unflatten(-1, (m.n_group, -1))
+        best = grouped.topk(2, dim=-1).values.sum(-1)                     # [..., G]
+        kept = best.topk(m.topk_group, dim=-1).indices
+        allowed = torch.zeros_like(best, dtype=torch.bool).scatter_(-1, kept, True)
+        choice = grouped.masked_fill(~allowed[..., None], float("-inf")).flatten(-2)
+    idx = choice.topk(m.top_k, dim=-1).indices
+    gates = scores.gather(-1, idx)
+    return gates / (gates.sum(-1, keepdim=True) + 1e-20) * m.routed_scale, idx
+
+
+def route(x32: torch.Tensor, p: dict, m: MoEConfig):
+    """The serving paths' routing by the config's rule -> (gates [..., k]
+    float32, expert ids [..., k] over all ``n_experts``)."""
+    if m.scoring == "sigmoid":
+        return _sigmoid_gates(x32, p["router"], p["bias"], m)
+    return _top_k_gates(x32, p["router"], m)
+
+
+def _shared_expert(x: torch.Tensor, p: dict, dot=qdot) -> torch.Tensor:
+    """The shared experts' SwiGLU on every token, its products by ``dot``."""
+    return dot(F.silu(dot(x, p["shared_gate"])) * dot(x, p["shared_up"]),
+               p["shared_down"])
+
+
 def moe_mlp_reference(x: torch.Tensor, p: dict, cfg, *, picks: bool = False):
     """Drop-free top-k mixture: every token reaches its top-k experts (no
     capacity truncation).  The yardstick of what the capacity path drops,
@@ -242,13 +334,15 @@ def moe_mlp_reference(x: torch.Tensor, p: dict, cfg, *, picks: bool = False):
     Where the reference scans over the stacked expert tables, a Python loop
     over experts accumulates into one f32 buffer, so no [E, B, T, F]
     tensor ever exists: peak memory is one [B, T, F] expert activation.
-    Every expert computes on every token, its gate zero where it was not
-    chosen.  Raw tables stream at the compute dtype with f32 activations;
+    Every held expert computes on every token, its gate zero where it was
+    not chosen; the pairs routed to experts not held here add nothing.
+    Raw tables stream at the compute dtype with f32 activations;
     quantized ones go through :func:`~.quant.qdot`, one expert's slice at a
-    time.  With ``picks``, (output, the top-k expert ids [B, T, k])."""
+    time.  Shared experts add their SwiGLU for every token.  With
+    ``picks``, (output, the top-k expert ids [B, T, k])."""
     m = cfg.moe
     x32 = x.float()
-    gates, idx = _top_k_gates(x32, p["router"], m)
+    gates, idx = route(x32, p, m)
     w = (F.one_hot(idx, m.n_experts).float() * gates[..., None]).sum(2)  # [B,T,E]
 
     def wdot(x_, wt):
@@ -257,10 +351,13 @@ def moe_mlp_reference(x: torch.Tensor, p: dict, cfg, *, picks: bool = False):
         return x_ @ wt.to(cfg.compute_dtype).float()
 
     out = torch.zeros_like(x32)
-    for e in range(m.n_experts):
-        wg, wu, wd = (_expert(p[n], e) for n in EXPERT_TABLES)
+    lo, hi = m.held_range
+    for e in range(lo, hi):
+        wg, wu, wd = (_expert(p[n], e - lo) for n in EXPERT_TABLES)
         h = F.silu(wdot(x32, wg)) * wdot(x32, wu)
         out.add_(w[..., e:e + 1] * wdot(h, wd))
+    if m.n_shared:
+        out.add_(_shared_expert(x32, p, wdot))
     return (out.to(x.dtype), idx) if picks else out.to(x.dtype)
 
 
@@ -303,20 +400,24 @@ class ExpertCounts:
     running sums and added to inside the captured programs (no readback):
     ``calls``; ``pairs``, the routed (token, expert) pairs; ``experts_hit``,
     the experts with at least one pair, summed over calls; ``max_load``, the
-    busiest expert's pairs, summed over calls; and on CUDA ``device_ns``,
-    the layer's device time from the GPU's global timer at its start and
-    end (``csrc/obs/device_clock.cu``).  :meth:`snapshot` reads them back."""
+    busiest expert's pairs, summed over calls (``pairs`` and the two after
+    it count the experts held here only, the pairs the layer computes);
+    ``pairs_all``, the pairs routed over all the router's experts; and on
+    CUDA ``device_ns``, the layer's device time from the GPU's global timer
+    at its start and end (``csrc/obs/device_clock.cu``).  :meth:`snapshot`
+    reads them back."""
 
-    NAMES = ("calls", "pairs", "experts_hit", "max_load", "device_ns")
+    NAMES = ("calls", "pairs", "experts_hit", "max_load", "pairs_all", "device_ns")
 
     def __init__(self, device) -> None:
         self.values = torch.zeros(len(self.NAMES), dtype=torch.int64, device=device)
 
-    def add(self, per_expert: torch.Tensor) -> None:
-        """One call whose pairs per expert are ``per_expert`` [E] int64."""
+    def add(self, per_expert: torch.Tensor, pairs_all: int) -> None:
+        """One call whose pairs per held expert are ``per_expert`` [E] int64,
+        of ``pairs_all`` routed."""
         one = torch.ones((), dtype=torch.int64, device=per_expert.device)
-        self.values[:4] += torch.stack((one, per_expert.sum(), (per_expert > 0).sum(),
-                                        per_expert.max()))
+        self.values[:5] += torch.stack((one, per_expert.sum(), (per_expert > 0).sum(),
+                                        per_expert.max(), one * pairs_all))
 
     def clock(self, sign: int) -> None:
         """Add ``sign`` x the GPU's global timer to ``device_ns`` (-1 where
@@ -325,7 +426,7 @@ class ExpertCounts:
             from tputopo_torch import attention
 
             attention._call(_kernels.DEVICE_CLOCK,
-                            (self.values[4:].data_ptr(), sign, 0.0), self.values.device,
+                            (self.values[5:].data_ptr(), sign, 0.0), self.values.device,
                             "device clock")
 
     def snapshot(self) -> dict:
@@ -356,8 +457,8 @@ def moe_mlp_routed(x: torch.Tensor, p: dict, cfg, *, picks: bool = False):
     """The drop-free top-k mixture of :func:`moe_mlp_reference`, computed
     on the routed pairs only: x [B, T, D] -> [B, T, D].
 
-    The router, its softmax, the top k and the renormalised gates are the
-    same operations, in float32.  The B*T*k (token, expert) pairs are sorted
+    The router, its scores, the top k and the gates are the same operations
+    (:func:`route`), in float32.  The B*T*k (token, expert) pairs are sorted
     by expert on the device (a stable sort, so each expert's pairs keep
     their token order); each expert's segment ends at the running sum of
     its pair count, taken by a scatter-add.  The pairs' rows, gathered into
@@ -370,6 +471,11 @@ def moe_mlp_routed(x: torch.Tensor, p: dict, cfg, *, picks: bool = False):
     which the device adds.  No step reads a value back to the host and
     every shape is fixed by B*T, so the layer replays inside a CUDA graph.
 
+    Where the config holds a share of the experts (``held``), the router
+    still chooses over all of them; the pairs of experts not held here sort
+    after the held experts' segments, which the grouped GEMMs stop at, and
+    their rows add zero.  Shared experts add their SwiGLU for every token.
+
     It departs from :func:`moe_mlp_reference` as the dense serving FFN
     departs from a float32 one: the expert activations (the gathered rows,
     the products, the SiLU gate) are bfloat16 where the loop keeps them in
@@ -377,16 +483,22 @@ def moe_mlp_routed(x: torch.Tensor, p: dict, cfg, *, picks: bool = False):
     expert ids [B, T, k])."""
     m = cfg.moe
     B, T, D = x.shape
-    E, k = m.n_experts, m.top_k
+    k = m.top_k
     counts = _COUNTS
     if counts is not None:
         counts.clock(-1)
     x2 = x.reshape(B * T, D)
-    gates, idx = _top_k_gates(x2.float(), p["router"], m)           # [N, k]
+    gates, idx = route(x2.float(), p, m)                              # [N, k]
     flat = idx.reshape(-1)                                           # pair -> expert
+    held = None
+    if m.held is not None:  # experts outside [lo, hi) sort last, as one more key
+        lo, hi = m.held
+        held = (flat >= lo) & (flat < hi)
+        flat = torch.where(held, flat - lo, hi - lo)
+    E = m.n_held
     order = torch.sort(flat, stable=True).indices                    # pairs by expert
-    per_expert = torch.zeros(E, dtype=torch.int64, device=x.device).scatter_add_(
-        0, flat, torch.ones_like(flat))
+    per_expert = torch.zeros(E + (held is not None), dtype=torch.int64,
+                             device=x.device).scatter_add_(0, flat, torch.ones_like(flat))[:E]
     ends = per_expert.cumsum(0).to(torch.int32)
     dt = cfg.compute_dtype
     rows = x2.to(dt).index_select(0, order // k)                     # [N*k, D]
@@ -394,10 +506,14 @@ def moe_mlp_routed(x: torch.Tensor, p: dict, cfg, *, picks: bool = False):
     h = h * grouped_mm(rows, p["w_up"].to(dt), ends)
     y = grouped_mm(h, p["w_down"].to(dt), ends).float()              # [N*k, D]
     y = y * gates.reshape(-1).index_select(0, order)[:, None]
+    if held is not None:  # rows past the held segments hold no product
+        y = torch.where(held.index_select(0, order)[:, None], y, 0.0)
     y = torch.empty_like(y).index_copy_(0, order, y)                 # back in pair order
     out = y.reshape(B * T, k, D).sum(1)
+    if m.n_shared:
+        out = out + _shared_expert(x2.to(dt), p).float()
     if counts is not None:
-        counts.add(per_expert)
+        counts.add(per_expert, B * T * k)
         counts.clock(1)
     out = out.reshape(B, T, D).to(x.dtype)
     return (out, idx.reshape(B, T, k)) if picks else out

@@ -238,6 +238,60 @@ class Tracer:
                 "by_phase": {k: v / 1e6 for k, v in by.items() if v}}
 
 
+class LatentCounts:
+    """A tracer's counts of latent attention (:func:`~.attention.cached_latent_attention`),
+    held on the device as int64 running sums and added to inside the
+    captured programs (no readback), apart for the absorbed form (decode,
+    ``decode_*``) and the expanded one (prefill, ``prefill_*``): ``calls``
+    (one a layer a program call), ``queries`` (query tokens), ``rows`` (the
+    latent rows the queries attend, each row's positions up to its last
+    query), ``pairs`` (query x attended position pairs), and on CUDA ``ns``,
+    the device time from the GPU's global timer where the call starts (the
+    queries' absorption, or the rows' up-projection) and where it ends (the
+    values' projection).  A decode step's idle slots, whose junk window
+    sits at the buffer's last position, count in none of them but
+    ``calls``.  :meth:`snapshot` reads them back with the sums ``calls`` and
+    ``device_ns``."""
+
+    FIELDS = ("calls", "queries", "rows", "pairs", "ns")
+    NAMES = ("decode_calls", "decode_queries", "decode_rows", "decode_pairs", "decode_ns",
+             "prefill_calls", "prefill_queries", "prefill_rows", "prefill_pairs",
+             "prefill_ns")
+
+    def __init__(self, device) -> None:
+        self.values = torch.zeros(len(self.NAMES), dtype=torch.int64, device=device)
+
+    def _base(self, absorbed: bool) -> int:
+        return 0 if absorbed else len(self.FIELDS)
+
+    def add(self, absorbed: bool, pos: torch.Tensor, T: int, S: int) -> None:
+        """One call of T queries a row at positions pos[b] + t over a cache
+        of S positions."""
+        live = (pos + T < S).long()
+        one = torch.ones((), dtype=torch.int64, device=pos.device)
+        rows = (pos + T) * live
+        pairs = (T * (pos + 1) + T * (T - 1) // 2) * live
+        base = self._base(absorbed)
+        self.values[base:base + 4] += torch.stack((one, live.sum() * T, rows.sum(),
+                                                   pairs.sum()))
+
+    def clock(self, absorbed: bool, sign: int) -> None:
+        """Add ``sign`` x the GPU's global timer to the form's ``ns``;
+        nothing off CUDA."""
+        if self.values.device.type == "cuda":
+            from tputopo_torch import _kernels, attention
+
+            i = self._base(absorbed) + 4
+            attention._call(_kernels.DEVICE_CLOCK, (self.values[i:].data_ptr(), sign, 0.0),
+                            self.values.device, "device clock")
+
+    def snapshot(self) -> dict:
+        d = dict(zip(self.NAMES, self.values.tolist()))
+        d["calls"] = d["decode_calls"] + d["prefill_calls"]
+        d["device_ns"] = d["decode_ns"] + d["prefill_ns"]
+        return d
+
+
 def _overlap(intervals: list, s: int, e: int, by: collections.Counter,
              named: bool | None) -> int:
     """The ns of [s, e) covered by the sorted, disjoint ``intervals``

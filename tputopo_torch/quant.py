@@ -38,7 +38,9 @@ import torch
 
 #: Weight names quantized in the stacked-layer tree.  Norm weights stay
 #: float32: they are O(D), and streaming them quantized saves nothing.
-_LAYER_WEIGHTS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+_LAYER_WEIGHTS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+                  "q_a", "q_b", "kv_a", "kv_b")
+_EXPERT_WEIGHTS = ("w_gate", "w_up", "w_down", "shared_gate", "shared_up", "shared_down")
 
 
 def is_quantized(w) -> bool:
@@ -114,6 +116,8 @@ def quantize_params(params: dict, *, bits: int = 8,
     (it is gathered, not streamed).  Norm weights stay float32."""
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
+    if "kv_b" in params["layers"]:
+        raise ValueError("quantized weights have no latent attention (MLA) support")
 
     def mat(w):
         return (_quantize_leaf(w, axis=-2) if bits == 8
@@ -127,7 +131,8 @@ def quantize_params(params: dict, *, bits: int = 8,
 def _map_matmul_weights(params: dict, fn) -> dict:
     """The tree with ``fn`` applied to each raw matmul weight, the weights
     serving casts whole to the compute dtype before use: the layers'
-    projections, the expert tables, ``lm_head``, and a LoRA leaf's
+    projections (an MLA layer's too), the expert and shared-expert tables,
+    ``lm_head``, and a LoRA leaf's
     ``lora_base``.  Every other leaf is shared: the norms and the router
     (used in f32), the embedding (gathered, then cast), the adapters and
     quantized leaves."""
@@ -142,7 +147,8 @@ def _map_matmul_weights(params: dict, fn) -> dict:
             layers[name] = leaf(layers[name])
     if "moe" in layers:
         layers["moe"] = dict(layers["moe"], **{
-            name: leaf(layers["moe"][name]) for name in ("w_gate", "w_up", "w_down")})
+            name: leaf(layers["moe"][name]) for name in _EXPERT_WEIGHTS
+            if name in layers["moe"]})
     return dict(params, layers=layers, lm_head=leaf(params["lm_head"]))
 
 

@@ -49,7 +49,9 @@ the identity on one card and are dropped.  An MoE config's FFN is the
 drop-free mixture, as in :mod:`.decode`: on CUDA with raw expert tables the
 routed layer (:func:`~.moe.moe_mlp_routed`), whose sort, grouped GEMMs and
 combine replay inside the programs' graphs; with quantized tables or on
-the CPU the loop over the experts.
+the CPU the loop over the experts.  An MLA config (DeepSeek-V3) keeps the
+latent cache (``KVCache.latent``), gathered and written back per slot as
+the K/V buffers are, and runs the same programs over it.
 """
 
 from __future__ import annotations
@@ -59,7 +61,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from tputopo_torch import _graphs, _kernels, moe, obs
+from tputopo_torch import _graphs, _kernels, attention, moe, obs
 from tputopo_torch.decode import (KVCache, _block_hidden, _select, _window_start,
                                   cached_layers)
 from tputopo_torch.model import (ModelConfig, _check_supported, _rope_tables,
@@ -130,7 +132,7 @@ def _slot_cache(cache: KVCache, slot: int) -> KVCache:
 
 def _slot_prefill(params: dict, whole: KVCache, config: ModelConfig,
                   slot: torch.Tensor, tokens: torch.Tensor,
-                  start: torch.Tensor) -> torch.Tensor:
+                  start: torch.Tensor, span: int | None = None) -> torch.Tensor:
     """``tokens`` [T] at positions start..start+T-1 through the stack
     against the rows of ``slot`` (a [1] device index) of the cache
     ``whole``, which are gathered and written back, as the reference runs
@@ -138,14 +140,15 @@ def _slot_prefill(params: dict, whole: KVCache, config: ModelConfig,
     last layer's output [1, T, D].  ``start`` ([1]) places the
     window as ``dynamic_slice`` does (:func:`_window_start`) for the RoPE
     rows and the cache write; the causal mask compares with the raw start,
-    as the reference's does."""
-    S, T = whole.k.shape[2], tokens.shape[0]
+    as the reference's does.  ``span`` as :func:`~.decode.cached_layers`
+    takes it."""
+    S, T = whole.positions, tokens.shape[0]
     cache = KVCache(*(None if b is None else b.index_select(1, slot)
                       for b in whole))
     cos, sin = _rope_tables(config, S, tokens.device)
     rows = _window_start(start, S, T)[:, None] + torch.arange(T, device=tokens.device)
     x = embed_tokens(params, tokens[None, :], config)
-    x = cached_layers(params, config, x, cos[rows], sin[rows], start, cache)
+    x = cached_layers(params, config, x, cos[rows], sin[rows], start, cache, span=span)
     for buf, b in zip(whole, cache):
         if b is not None:
             buf.index_copy_(1, slot, b)
@@ -182,14 +185,14 @@ def _finish_admit(state: DecodeState, slot: torch.Tensor, first: torch.Tensor,
 def _admission(params: dict, state: DecodeState, config: ModelConfig,
                chunk: torch.Tensor, a: torch.Tensor, prompt: torch.Tensor | None,
                temperature: float, top_k: int | None,
-               generator: torch.Generator | None) -> None:
+               generator: torch.Generator | None, span: int | None = None) -> None:
     """The one body of the admission programs, in place: ``chunk`` into the
     slot's cache at the start ``a`` names; with ``prompt`` (the padded
     row), also the first token, picked from the logits at prompt_len - 1
     (an index into the chunk placed as ``dynamic_index_in_dim`` places
     it), and the slot's activation."""
     slot, start = a[_SLOT:_SLOT + 1], a[_START:_START + 1]
-    x = _slot_prefill(params, state.cache, config, slot, chunk, start)
+    x = _slot_prefill(params, state.cache, config, slot, chunk, start, span)
     if prompt is None:
         return
     plen = a[_PLEN:_PLEN + 1]
@@ -205,21 +208,25 @@ def _admit_program(programs, name: str, params: dict, state: DecodeState,
                    temperature: float = 0.0, top_k: int | None = None,
                    generator: torch.Generator | None = None, jit: bool) -> None:
     """Run :func:`_admission`: eagerly, or as the compiled program ``name``
-    (one graph per config, chunk and prompt width, temperature and top_k).
+    (one graph per config, chunk and prompt width, temperature and top_k,
+    and for an MLA config per chunk end, ``span``: latent attention reads
+    the slot's rows below it only, :func:`~.attention.cached_latent_attention`).
     Host ids are range-checked here, where they enter the device."""
     device = state.tokens.device
     inputs = (torch.as_tensor(chunk), a) + (() if prompt is None
                                             else (torch.as_tensor(prompt),))
+    span = (None if config.mla is None
+            else min(int(a[_START]) + inputs[0].shape[0], state.cache.positions))
 
     def body(chunk, a, prompt=None):
         _admission(params, state, config, chunk, a, prompt, temperature, top_k,
-                   generator)
+                   generator, span)
 
     if not jit:
         return body(*(t.to(device) for t in inputs))
     check_token_ids(inputs[0], config)
-    _graphs.run(programs, name, body, device=device,
-                static=(config, temperature, top_k), inputs=inputs,
+    static = (config, temperature, top_k) + (() if span is None else (span,))
+    _graphs.run(programs, name, body, device=device, static=static, inputs=inputs,
                 bound=(params, state), mutated=state, generator=generator)
 
 
@@ -399,7 +406,7 @@ def ragged_hidden(params: dict, config: ModelConfig, tokens: torch.Tensor,
     one position per slot (the speculative draft's catch-up)."""
     _check_supported(config)
     T = tokens.shape[1]
-    max_len = cache.k.shape[2]
+    max_len = cache.positions
     cos, sin = _rope_tables(config, max_len, tokens.device)
     pos_bt = (starts[:, None] + torch.arange(T, device=tokens.device)).clamp(
         0, max_len - 1)
@@ -552,10 +559,10 @@ class ServingEngine:
 
     ``record_routes`` (an MoE config) keeps each finished request's expert
     choices on the device: :attr:`routes` maps its id to the top-k expert
-    ids [L, positions, k] int8 of every position it fed through the
-    layers (its prompt and its tokens but the last; -1 where a prefix copy
-    filled the cache), copied from the slot when it is harvested, with no
-    readback.
+    ids [L_moe, positions, k] int16 of every position it fed through the
+    expert layers (its prompt and its tokens but the last; -1 where a
+    prefix copy filled the cache), copied from the slot when it is
+    harvested, with no readback.
 
     Streaming: ``on_tokens(rid, [token_ids])`` fires after each tick with
     the GENERATED tokens newly committed for that request; it costs one
@@ -576,15 +583,17 @@ class ServingEngine:
     that follows it (:meth:`_read`), and each request's ``queued``,
     ``admitted``, ``first_token`` and ``finished``.  Its export carries
     :attr:`metrics`, the programs' counts, the launches of the decode and
-    chunk attention kernels and of the grouped GEMM, :attr:`weights`, and for an
-    MoE config the routed layer's counts (``moe``:
-    :class:`~.moe.ExpertCounts`, added to on the device by every program
-    captured while traced).
+    chunk attention kernels and of the grouped GEMM, :attr:`weights`, for
+    an MoE config the routed layer's counts (``moe``:
+    :class:`~.moe.ExpertCounts`) and for an MLA config latent attention's
+    (``mla``: :class:`~.obs.LatentCounts`), each added to on the device by
+    every program captured while traced.
 
     All device work goes through the compiled programs, as the reference's
     engine does: on CUDA each replays its CUDA graph from this engine's
-    :attr:`programs` (one graph per bucket or chunk width, one decode
-    program per ``steps_per_tick``), on the CPU it runs its body.  The
+    :attr:`programs` (one graph per bucket or chunk width, and for an MLA
+    config per chunk start too, one decode program per
+    ``steps_per_tick``), on the CPU it runs its body.  The
     queue, slot choice, harvest and streaming stay on the host between
     replays.  :meth:`_program` is the one place that calls them.
     """
@@ -663,6 +672,9 @@ class ServingEngine:
         self.expert_counts = (moe.ExpertCounts(self.device)
                               if tracer is not None and self.config.moe is not None
                               else None)
+        self.latent_counts = (obs.LatentCounts(self.device)
+                              if tracer is not None and self.config.mla is not None
+                              else None)
         if tracer is not None:
             # The carries hold what they read, not the engine: no cycle
             # through the tracer keeps a dropped engine's weights and state
@@ -679,6 +691,8 @@ class ServingEngine:
             tracer.carry("weights", lambda: dict(weights))
             if self.expert_counts is not None:
                 tracer.carry("moe", self.expert_counts.snapshot)
+            if self.latent_counts is not None:
+                tracer.carry("mla", self.latent_counts.snapshot)
 
     def _program(self, name: str, *args, **kw):
         """Run the device program ``name`` (``"admit"``, ``"decode_steps"``,
@@ -691,10 +705,12 @@ class ServingEngine:
         """:meth:`_program`, traced under a span named after the program,
         whose attributes ``work`` says what it runs (request, slot, prompt
         tokens, first position, steps); an MoE config's routed layer adds
-        to :attr:`expert_counts` inside it."""
+        to :attr:`expert_counts` inside it, an MLA config's latent attention
+        to :attr:`latent_counts`."""
         if self.tracer is None:
             return self._program(name, *args, **kw)
-        with self.tracer.span(name, **work), moe.counting(self.expert_counts):
+        with (self.tracer.span(name, **work), moe.counting(self.expert_counts),
+              attention.latent_counting(self.latent_counts)):
             return self._program(name, *args, **kw)
 
     def _read(self, t: torch.Tensor) -> torch.Tensor:

@@ -58,7 +58,7 @@ import torch
 
 from tputopo_torch import _graphs
 from tputopo_torch.decode import KVCache, _block_hidden, _block_step
-from tputopo_torch.model import (ModelConfig, _check_supported, _rope_tables,
+from tputopo_torch.model import (ModelConfig, _check_supported, _rope_tables, check_plain,
                                  check_token_ids, lm_head)
 from tputopo_torch.serving import (DecodeState, ServingEngine, _host, _slot_prefill,
                                    ragged_block, ragged_hidden)
@@ -191,6 +191,7 @@ def _spec_generate(params: dict, prompt, config: ModelConfig, max_new: int,
     """:func:`spec_generate`'s host loop: the prefill, then rounds of verify
     steps with one readback of the committed length a round; the two
     programs replay with ``jit``, else their bodies run op by op."""
+    check_plain(config, "speculative decoding")
     c = config
     _check_supported(c)
     device = params["final_norm"].device
@@ -446,6 +447,7 @@ class SpecServingEngine(ServingEngine):
                  eos_id: int = -1, on_tokens=None, tracer=None) -> None:
         if gamma < 1:
             raise ValueError(f"gamma must be >= 1, got {gamma}")
+        check_plain(config, "speculative decoding")
         self.gamma = gamma
         # buffer_margin: a slot at the logical max_len still needs a
         # non-clamping gamma+1 verify window (_write_kv_at's contract);
