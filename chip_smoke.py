@@ -2686,6 +2686,15 @@ def phase_moe_decode_serve(tt, kernels, params, cfg) -> dict:
 # its 32 slots.
 MLA_SLOTS, MLA_MAX_LEN, MLA_CHUNK = 32, 32768, 2048
 MLA_CHUNK_STARTS = (0, 6144, 14336, 26624)
+# The latent chunk-attention kernel (csrc/latent_chunk_attn.cu) against the
+# plain expanded form: both round P to bf16, from f32 exponentials taken
+# against other running maxima (a 128-position tile's, a 1024-position
+# block's), so a probability may land one bf16 ulp apart; each output is
+# rounded to bf16 once.  Elementwise they take the flash forward's bf16
+# tolerance (TOL); each query head's 128 outputs ||kernel - plain|| /
+# ||plain|| <= LATENT_ROW_REL, which a dropped tile, the diagonal off by one
+# and P in e4m3 exceed (tests/test_torch_latent_chunk_attention.py).
+LATENT_ROW_REL = 1e-2
 
 
 def mla_config(tt, layers: int = 1):
@@ -2700,19 +2709,22 @@ def mla_config(tt, layers: int = 1):
 
 
 def phase_mla(tt) -> dict:
-    """Latent attention at DeepSeek-V3's widths, in plain PyTorch, as
-    captured graphs replay it, each beside its least time (the cheaper
-    form's flops at the bf16 peak or the live rows, q and out at HBM
-    bandwidth): the expanded form over a 2048-token chunk at starts
-    :data:`MLA_CHUNK_STARTS`, reading the rows below the chunk's end only
-    (at one start, bit for bit what it gives over the whole cache); the
-    absorbed decode form at the cell's 32 slots x 32768 positions, which
-    reads every position.  Then one expert layer through
-    ``ServingEngine``'s programs, traced: ``decode_attn`` and ``chunk_attn``
-    never launched (their launch counts read around the engine's run), the
-    ``mla`` counts grown in both forms, the tokens the same on a second
-    run."""
+    """Latent attention at DeepSeek-V3's widths, as captured graphs replay
+    it, each beside its least time (the cheaper form's flops at the bf16
+    peak or the live rows, q and out at HBM bandwidth): the prefill chunks'
+    path over a 2048-token chunk at starts :data:`MLA_CHUNK_STARTS`, reading
+    the rows below the chunk's end only: its up-projection GEMM and
+    ``csrc/latent_chunk_attn.cu`` (within TOL and :data:`LATENT_ROW_REL` of
+    the plain expanded form), the kernel alone, the plain expanded form
+    called directly, and SDPA over the same up-projected keys and values (a
+    yardstick the port never calls); the absorbed decode form (plain) at
+    the cell's 32 slots x 32768 positions, which reads every position.
+    Then one expert layer through ``ServingEngine``'s programs, traced:
+    ``latent_chunk_attn`` launched, ``decode_attn`` and ``chunk_attn``
+    never (their launch counts read around the engine's run), the ``mla``
+    counts grown in both forms, the tokens the same on a second run."""
     from tputopo_torch import _kernels, attention
+    from tputopo_torch.mla import softmax_scale
 
     t_phase = time.perf_counter()
     cfg = mla_config(tt)
@@ -2720,16 +2732,17 @@ def phase_mla(tt) -> dict:
     R, Dq = m.kv_rank, m.row
     gen = torch.Generator(device="cuda").manual_seed(31)
     bf = torch.bfloat16
+    rtol, atol = TOL[bf]
 
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device="cuda") * scale).to(bf)
 
-    def least_ms(T, pos, absorbed):
+    def least_ms(T, pos, absorbed, upproject=True):
         rows = int((pos + T).sum())
         pairs = int((T * (pos + 1) + T * (T - 1) // 2).sum())
         flops = 2.0 * N * pairs * ((2 * R + m.rope) if absorbed
                                    else (m.nope + m.rope + m.v))
-        if not absorbed:
+        if not absorbed and upproject:
             flops += 2.0 * R * N * (m.nope + m.v) * rows
         nbytes = 2.0 * (rows * Dq + pos.numel() * T * N * (m.nope + m.rope + m.v))
         return max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
@@ -2738,22 +2751,79 @@ def phase_mla(tt) -> dict:
     T = MLA_CHUNK
     latent = randn(1, MLA_MAX_LEN, Dq)
     q_nope, q_pe = randn(1, T, N, m.nope), randn(1, T, N, m.rope)
+    kernel = _kernels.LATENT_CHUNK_ATTN
+    prefill = []
     for start in MLA_CHUNK_STARTS:
         pos = torch.tensor([start], device="cuda")
         span = start + T
+        rows, seen = latent[:, :span], start
 
         def call(span=span, pos=pos):
             return attention.cached_latent_attention(q_nope, q_pe, latent, pos, kv_b, m, span)
 
+        def plain(rows=rows, pos=pos, seen=seen):
+            return attention.latent_expanded(q_nope, q_pe, rows, pos, kv_b, m, seen)
+
+        before = kernel.launches
+        got, again, ref = call(), call(), plain()
+        torch.cuda.synchronize()
+        diff = got.float() - ref.float()
         rec = {"phase": "latent_prefill", "shape": [T, MLA_MAX_LEN, N], "start": start,
-               "ms": graph_ms(call, calls=2), "least_ms": least_ms(T, pos, False)}
+               "launches": kernel.launches - before,
+               "max_err_over_tol": ((diff.abs() / (atol + rtol * ref.float().abs()))
+                                    .max().item()),
+               "max_row_rel_err": (diff.norm(dim=-1) / ref.float().norm(dim=-1)).max().item(),
+               "bound_row_rel": LATENT_ROW_REL,
+               "repeat_bitwise": bool(torch.equal(got, again))}
+        del got, again, ref, diff
+        check(rec["launches"] == 2, f"latent_chunk_attn: {rec['launches']} launches, want 2")
+        check(rec["max_err_over_tol"] <= 1.0 and rec["max_row_rel_err"] <= LATENT_ROW_REL,
+              f"latent_chunk_attn disagrees with the plain expanded form: {rec}")
+        check(rec["repeat_bitwise"], f"latent_chunk_attn: two launches differ: {rec}")
         if start == MLA_CHUNK_STARTS[1]:
-            rec["bitwise_whole_cache"] = bool(torch.equal(
-                call(), attention.cached_latent_attention(q_nope, q_pe, latent, pos, kv_b, m)))
-            check(rec["bitwise_whole_cache"], f"the span changed the prefill's output: {rec}")
+            # the plain form's blocks are the same with or without the span
+            rec["plain_bitwise_whole_cache"] = bool(torch.equal(
+                plain(), attention.latent_expanded(q_nope, q_pe, latent, pos, kv_b, m)))
+            check(rec["plain_bitwise_whole_cache"],
+                  f"the span changed the plain prefill's output: {rec}")
+
+        # the kernel alone, over the up-projected rows and the scaled q
+        q = (torch.cat([q_nope, q_pe], -1).float() * softmax_scale(m)).to(bf)
+        kv = torch.matmul(latent[:, :span, :R], kv_b).view(1, span, N, m.nope + m.v)
+        out = torch.empty((1, T, N, m.v), dtype=bf, device="cuda")
+        args = attention._latent_chunk_launch_args(q, kv, latent, pos, out, span)
+
+        def kernel_alone(args=args):
+            attention._call(kernel, args, q.device, "timing")
+
+        # SDPA's layout [B, heads, S, D]: k_pe broadcast to every head
+        kt = torch.cat([kv[..., :m.nope], latent[:, :span, None, R:].expand(-1, -1, N, -1)],
+                       -1).transpose(1, 2).contiguous()
+        vt = kv[..., m.nope:].transpose(1, 2).contiguous()
+        qt = q.transpose(1, 2).contiguous()
+        mask = torch.arange(span, device="cuda") <= start + torch.arange(T, device="cuda")[:, None]
+        rec.update({"ms": graph_ms(call, calls=2), "kernel_alone_ms": graph_ms(kernel_alone),
+                    "upproject_ms": graph_ms(lambda: torch.matmul(latent[:, :span, :R], kv_b),
+                                             calls=4),
+                    "plain_ms": graph_ms(plain, calls=2),
+                    "least_ms": least_ms(T, pos, False),
+                    "kernel_alone_least_ms": least_ms(T, pos, False, upproject=False)})
+        try:
+            rec["library_ms"] = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, scale=1.0), calls=2)
+        except RuntimeError as e:  # a yardstick only: the port never calls it
+            rec["library_ms"], rec["library_error"] = None, str(e)[:200]
         rec["share_of_least"] = rec["least_ms"] / rec["ms"]
+        rec["kernel_alone_share"] = rec["kernel_alone_least_ms"] / rec["kernel_alone_ms"]
         emit(rec)
+        prefill.append(rec)
+        del q, kv, out, kt, vt, qt, mask, args
+    emit({"phase": "latent_prefill_card", "card": card_state(),
+          "library": "scaled_dot_product_attention over the up-projected keys (k_pe "
+                     "broadcast) and values, boolean mask, the up-projection not timed"})
     del latent, q_nope, q_pe
+    gc.collect()
+    torch.cuda.empty_cache()
 
     latent = randn(MLA_SLOTS, MLA_MAX_LEN, Dq)
     pos = torch.linspace(8192, 29000, MLA_SLOTS, device="cuda").long()
@@ -2786,13 +2856,15 @@ def phase_mla(tt) -> dict:
         del eng
         gc.collect()
         torch.cuda.empty_cache()
-    rec = {"phase": "mla_serve", "launches": launched, "mla": counts,
+    rec = {"phase": "mla_serve", "launches": launched, "mla": counts, "prefill": prefill,
            "routes_max_id": int(routes.max()), "routes_dtype": str(routes.dtype),
            "tokens_equal_on_rerun": runs[0] == runs[1],
            "seconds": time.perf_counter() - t_phase}
     emit(rec)
     check(launched[_kernels.DECODE_ATTN.name] == 0 and launched[_kernels.CHUNK_ATTN.name] == 0,
           f"a latent cache reached decode_attn or chunk_attn: {launched}")
+    check(launched[kernel.name] > 0 and launched[kernel.name] % cfg.n_layers == 0,
+          f"the prefill chunks did not take latent_chunk_attn: {launched}")
     check(counts["decode_calls"] > 0 and counts["prefill_calls"] > 0
           and counts["decode_ns"] > 0 and counts["prefill_ns"] > 0, f"mla counts: {counts}")
     check(rec["tokens_equal_on_rerun"], "the MLA engine's tokens differ between two runs")

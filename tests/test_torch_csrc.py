@@ -102,15 +102,21 @@ def test_launch_passes_the_c_parameters_in_order(source, dtype, monkeypatch):
 def test_header_note_names_the_pallas_kernel_it_replaces(source):
     """A flash source names the Pallas kernel it replaces; a kernel that
     replaces none (the reference's plain code, which XLA fuses) says so and
-    names the reference function it computes."""
+    names the reference function it computes, or, where the reference has
+    no such function at all (latent attention), says that and names the
+    port's plain version it computes."""
     note = source.read_text().split("\n\n")[0]
     m = re.search(r"Replaces tputopo/workloads/attention\.py:(\w+)", note)
     if m is None:
         m = re.search(r"Replaces no Pallas kernel.*?Computes\s+"
-                      r"tputopo/workloads/(\w+)\.py:(\w+)", note, re.S)
+                      r"tputopo(_torch|/workloads)/(\w+)\.py:(\w+)", note, re.S)
         assert m, f"{source.name}'s header note names no Pallas kernel, nor says it replaces none"
-        ref = (REPO / "tputopo" / "workloads" / f"{m.group(1)}.py").read_text()
-        assert re.search(rf"^def {m.group(2)}\(", ref, re.M), m.group(2)
+        if m.group(1) == "_torch":
+            assert re.search(r"Replaces no Pallas kernel: the reference has no", note)
+            ref = (REPO / "tputopo_torch" / f"{m.group(2)}.py").read_text()
+        else:
+            ref = (REPO / "tputopo" / "workloads" / f"{m.group(2)}.py").read_text()
+        assert re.search(rf"^def {m.group(3)}\(", ref, re.M), m.group(3)
         assert "pallas_call" not in ref
     else:
         fn = m.group(1)

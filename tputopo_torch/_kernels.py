@@ -126,7 +126,10 @@ DECODE_ATTN = Kernel("decode_attn", "decode_attn.cu", n_ptrs=7,
 # q ck cv pos out
 CHUNK_ATTN = Kernel("chunk_attn", "chunk_attn.cu", n_ptrs=5,
                     ints=("B", "T", "S", "N", "KV", "H"))
-KERNELS = (*FLASH, DECODE_ATTN, CHUNK_ATTN)
+# q kv latent pos out (the up-projected rows kv, the cache's k_pe in place)
+LATENT_CHUNK_ATTN = Kernel("latent_chunk_attn", "latent_chunk_attn.cu", n_ptrs=5,
+                           ints=("B", "T", "S", "span", "N", "R"))
+KERNELS = (*FLASH, DECODE_ATTN, CHUNK_ATTN, LATENT_CHUNK_ATTN)
 # Instrumentation, not one of the port's kernels: it computes nothing of
 # the reference's and replaces no kernel of it, so it lives apart from them
 # (``csrc/obs``).  acc, the running sum of the GPU's global timer that a

@@ -22,7 +22,12 @@ run :func:`cached_attention_plain`, their plain version.  Neither takes a
 latent cache: latent attention (MLA, :mod:`.mla`) over its own cache is
 :func:`cached_latent_attention`, two forms in plain PyTorch (bf16 products,
 an online softmax over blocks of positions): :func:`latent_absorbed` for
-decode steps, :func:`latent_expanded` for prefill chunks.
+decode steps, :func:`latent_expanded` for prefill chunks.  The prefill
+chunks' form has a kernel, ``csrc/latent_chunk_attn.cu``
+(:func:`_latent_chunk_attention_cuda`), for the calls
+:func:`latent_kernel_takes`: one up-projection GEMM of the rows below the
+chunk's end, then the kernel attends them; the rest keep
+:func:`latent_expanded`.
 
 :func:`flash_attention` is differentiable through one
 ``torch.autograd.Function``.  Its forward saves ``(q, k, v, o, lse)`` as the
@@ -369,6 +374,23 @@ def latent_counting(counts):
         _LATENT = before
 
 
+LATENT_NOPE = 128              # the kernel's widths: ``NOPE``, ``ROPE`` and ``VDIM``
+LATENT_ROPE = 64
+LATENT_V = 128
+
+
+def latent_kernel_takes(q_nope: torch.Tensor, latent: torch.Tensor, m) -> bool:
+    """Whether :func:`cached_latent_attention` sends the call to the latent
+    chunk-attention kernel in place of :func:`latent_expanded`: CUDA tensors,
+    bf16 queries and a bf16 cache, more than :data:`LATENT_ABSORBED_T`
+    queries a row (the prefill chunks; fewer take the absorbed form), and
+    the head widths of :class:`~.mla.MLAConfig` ``m`` the kernel was
+    compiled for (DeepSeek-V3's)."""
+    return (q_nope.device.type == "cuda" and q_nope.dtype == latent.dtype == torch.bfloat16
+            and q_nope.shape[1] > LATENT_ABSORBED_T
+            and (m.nope, m.rope, m.v) == (LATENT_NOPE, LATENT_ROPE, LATENT_V))
+
+
 def cached_latent_attention(q_nope: torch.Tensor, q_pe: torch.Tensor,
                             latent: torch.Tensor, pos: torch.Tensor, kv_b,
                             m, span: int | None = None) -> torch.Tensor:
@@ -390,17 +412,21 @@ def cached_latent_attention(q_nope: torch.Tensor, q_pe: torch.Tensor,
     position) pair and no up-projection, against 2 N (nope + rope + v) a
     pair plus 2 kv_rank N (nope + v) a row up-projected for the expanded
     form, :func:`latent_expanded`, which the wider prefill chunks take (at
-    T 2048, 3.4 times fewer flops a pair).  Neither builds a score tile over
+    T 2048, 3.4 times fewer flops a pair), or its kernel where
+    :func:`latent_kernel_takes` the call.  Neither builds a score tile over
     the whole cache for many queries."""
     T = q_nope.shape[1]
     S = latent.shape[1]
-    rows, seen = (latent, 0) if span is None else (latent[:, :span], max(span - T, 0))
     absorbed = T <= LATENT_ABSORBED_T
     counts = _LATENT
     if counts is not None:
         counts.clock(absorbed, -1)
-    form = latent_absorbed if absorbed else latent_expanded
-    out = form(q_nope, q_pe, rows, pos, kv_b, m, seen)
+    if not absorbed and latent_kernel_takes(q_nope, latent, m):
+        out = _latent_chunk_attention_cuda(q_nope, q_pe, latent, pos, kv_b, m, span)
+    else:
+        rows, seen = (latent, 0) if span is None else (latent[:, :span], max(span - T, 0))
+        form = latent_absorbed if absorbed else latent_expanded
+        out = form(q_nope, q_pe, rows, pos, kv_b, m, seen)
     if counts is not None:
         counts.add(absorbed, pos, T, S)
         counts.clock(absorbed, 1)
@@ -508,6 +534,72 @@ def latent_expanded(q_nope, q_pe, latent, pos, kv_b, m, seen: int = 0) -> torch.
         o = _online_softmax(block, qpos, latent.shape[1], LATENT_EXPANDED_BLOCK, seen)
         outs.append(o.transpose(0, 1))
     return torch.stack(outs).to(q_nope.dtype)
+
+
+def _latent_chunk_launch_args(q, kv, latent, pos, out, span: int) -> tuple:
+    """Check the arguments of ``csrc/latent_chunk_attn.cu``'s C entry and
+    return them, the stream aside: the pointers of q [B, T, N, nope + rope]
+    (the softmax scale folded in), the up-projected rows kv [B, span, N,
+    nope + v], one layer's latent cache [B, S, R + rope], pos [B] int64 and
+    out [B, T, N, v] (all bf16 but pos, at the kernel's widths), then B, T,
+    S, span, N, R and the scores' scale, 1 (q carries the softmax scale)."""
+    if q.dim() != 4 or q.shape[3] != LATENT_NOPE + LATENT_ROPE:
+        raise ValueError(f"latent chunk attention takes q [B, T, N, "
+                         f"{LATENT_NOPE + LATENT_ROPE}], got {tuple(q.shape)}")
+    B, T, N, _ = q.shape
+    if latent.dim() != 3 or latent.shape[0] != B or latent.shape[2] <= LATENT_ROPE:
+        raise ValueError(f"latent chunk attention takes a latent cache layer [{B}, S, "
+                         f"kv_rank + {LATENT_ROPE}], got {tuple(latent.shape)}")
+    S, R = latent.shape[1], latent.shape[2] - LATENT_ROPE
+    if R % 8:
+        raise ValueError(f"the kernel reads k_pe at column {R} by TMA: kv_rank must be "
+                         f"a multiple of 8")
+    if not 1 <= span <= S:
+        raise ValueError(f"span {span} must lie in [1, {S}], the cache's positions")
+    want = {"kv": (B, span, N, LATENT_NOPE + LATENT_V), "out": (B, T, N, LATENT_V)}
+    for name, t in {"kv": kv, "out": out}.items():
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"{name} must be {want[name]}, got {tuple(t.shape)}")
+    for name, t in {"q": q, "kv": kv, "latent": latent, "out": out}.items():
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"latent chunk attention takes bfloat16, {name} is {t.dtype}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and start on a 16-byte boundary")
+    if (pos.device != q.device or pos.dtype != torch.int64 or pos.shape != (B,)
+            or not pos.is_contiguous()):
+        raise ValueError(f"pos must be a contiguous int64 [{B}] tensor on {q.device}")
+    ptrs = [t.data_ptr() for t in (q, kv, latent, pos, out)]
+    return (*ptrs, B, T, S, span, N, R, 1.0)
+
+
+def _latent_chunk_attention_cuda(q_nope, q_pe, latent, pos, kv_b, m,
+                                 span: int | None = None) -> torch.Tensor:
+    """:func:`latent_expanded` over the rows below ``span`` (None: all S) on
+    the card: the rows' c_kv up-projected by ``kv_b`` in one bf16 GEMM (the
+    plain version's product, a call's scratch [B, span, N, nope + v] freed
+    when it returns), then ``csrc/latent_chunk_attn.cu`` attends them with
+    the cache's k_pe read in place -> [B, T, N, v] bf16."""
+    from tputopo_torch.mla import softmax_scale
+
+    B, T, N, _ = q_nope.shape
+    S = latent.shape[1]
+    span = S if span is None else span
+    if not 1 <= span <= S:
+        raise ValueError(f"span {span} must lie in [1, {S}], the cache's positions")
+    # [q_nope, q_pe] x scale, rounded once to bf16 (the product is taken in
+    # f32, as the plain version's), in one pass
+    scale = softmax_scale(m)
+    q = torch.empty((B, T, N, m.nope + m.rope), dtype=torch.bfloat16, device=q_nope.device)
+    torch.mul(q_nope, scale, out=q[..., :m.nope])
+    torch.mul(q_pe, scale, out=q[..., m.nope:])
+    kv = torch.matmul(latent[:, :span, :m.kv_rank], kv_b.to(latent.dtype))
+    kv = kv.view(B, span, N, m.nope + m.v)
+    out = torch.empty((B, T, N, m.v), dtype=torch.bfloat16, device=q.device)
+    _call(_kernels.LATENT_CHUNK_ATTN, _latent_chunk_launch_args(q, kv, latent, pos, out, span),
+          q.device, f"B={B}, T={T}, S={S}, span={span}, N={N}")
+    return out
 
 
 def _check_cache_operands(what: str, q, ck, cv, pos, outputs: dict) -> tuple[int, int]:

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the redesigned flash-attention kernels
-// (flash_fwd.cu, flash_bwd_dkv.cu) and of chunk_attn.cu: the TMA tensor map
-// over a [B, S, N, H] tensor, mbarriers, TMA loads, the wgmma shared-memory
+// (flash_fwd.cu, flash_bwd_dkv.cu), of chunk_attn.cu and of
+// latent_chunk_attn.cu: the TMA tensor maps over a [B, S, N, H] tensor and
+// over strided rows, mbarriers, TMA loads, the wgmma shared-memory
 // descriptor, the wgmma shapes the kernels use, and register rebalancing.
 //
 // Shared-memory tiles: a TMA box is 64 head-dim columns (128 bytes of bf16)
@@ -108,6 +109,27 @@ inline cudaError_t make_map_bshd_heads(CUtensorMap* map, const void* ptr, int B,
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// A 3-D map over the rows of a bf16 tensor [B, rows, cols] whose row and
+// batch strides (in bytes) are given, not implied: a column slice of a wider
+// buffer, or its first `rows` rows (latent_chunk_attn.cu's k_pe columns of
+// the latent cache).  A box is 64 columns x `box_rows` rows x 1 batch with
+// the 128-byte swizzle; columns past `cols` and rows past `rows` read as
+// zeros.  Loaded with tma_load_3d.
+inline cudaError_t make_map_rows(CUtensorMap* map, const void* ptr, int B, int rows, int cols,
+                                 long long row_stride, long long batch_stride, int box_rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)row_stride, (cuuint64_t)batch_stride};
+  const cuuint32_t box[3] = {BOX_COLS, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+                              dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // ---- device: shared memory, mbarriers, TMA ---------------------------------
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -161,6 +183,17 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// One box of a 3-D map (make_map_rows) into shared memory at `dst`;
+// completion is counted in bytes on `bar`.  Coordinates: column, row, batch.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int col, int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row), "r"(batch)
+      : "memory");
+}
+
 // ---- device: wgmma ---------------------------------------------------------
 
 // Two f32 values into one 32-bit register of bf16, the first in the low
@@ -188,6 +221,13 @@ __device__ __forceinline__ void wgmma_commit() {
 
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups are pending (they complete in
+// order): with N = 1, all but the latest group are done.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // Keeps the compiler from moving accesses of an accumulator across the

@@ -582,9 +582,9 @@ class ServingEngine:
     (:class:`~._graphs.Programs`), every device-to-host read and the stall
     that follows it (:meth:`_read`), and each request's ``queued``,
     ``admitted``, ``first_token`` and ``finished``.  Its export carries
-    :attr:`metrics`, the programs' counts, the launches of the decode and
-    chunk attention kernels and of the grouped GEMM, :attr:`weights`, for
-    an MoE config the routed layer's counts (``moe``:
+    :attr:`metrics`, the programs' counts, the launches of the decode,
+    chunk and latent chunk attention kernels and of the grouped GEMM,
+    :attr:`weights`, for an MoE config the routed layer's counts (``moe``:
     :class:`~.moe.ExpertCounts`) and for an MLA config latent attention's
     (``mla``: :class:`~.obs.LatentCounts`), each added to on the device by
     every program captured while traced.
@@ -686,6 +686,8 @@ class ServingEngine:
                 "launches": programs.launches[_kernels.DECODE_ATTN.name]})
             tracer.carry("chunk_attention", lambda: {
                 "launches": programs.launches[_kernels.CHUNK_ATTN.name]})
+            tracer.carry("latent_chunk_attention", lambda: {
+                "launches": programs.launches[_kernels.LATENT_CHUNK_ATTN.name]})
             tracer.carry("grouped_mm", lambda: {
                 "launches": programs.launches[_kernels.GROUPED_MM.name]})
             tracer.carry("weights", lambda: dict(weights))
